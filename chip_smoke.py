@@ -1,0 +1,376 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU and check it.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+It needs one CUDA device, ``nvcc`` and ``nvidia-smi``; it builds the port's
+CUDA kernel from ``oisat_tpu_torch/csrc`` into ``oisat_tpu_torch/_build`` and
+imports nothing of JAX.  Phases (any failure raises, exit code != 0):
+
+1. Device and build: the ``nvidia-smi`` name / power-limit line, the kernel
+   build time and ptxas's register report.
+2. Kernel vs plain: the mean-AK curve sums at 4,147,200 cells (the global
+   0.125 deg grid, 1440 x 2880) x 99 factors in float32 and float64, and the
+   edge cases N=1, N off the tile size, all-invalid (NaN curve), R=1.
+   Curves agree to rtol 1e-5 (float32) / 1e-12 (float64) -- the kernel sums
+   in double in a fixed order, the plain version in torch's order -- and the
+   knee index is identical; two kernel runs are bitwise equal.
+3. ``oi()`` at 1440 x 2880 float32 with the kernel engine vs the plain one:
+   identical ``reg_index``, fields within rtol 1e-5; and ``oi()`` on a small
+   float64 input against a literal numpy transcription of the reference
+   (rtol 1e-10, knee exact).
+4. The month through ``oisat_tpu_torch.driver.oisatgmi.analyze_month_fused``:
+   60 OMI-shaped orbits (1644 x 60 pixels, 35 levels) spread over the globe,
+   regridded by the port (linear, 0.25 deg fine grid, 2 x 2 box filter)
+   onto the global MERRA2-GMI grid (0.5 x 0.625 deg, 361 x 576 = 207,936
+   cells), a 72-level CTM with 8 3-hourly snapshots.  The kernel's launch
+   count over the regrid + month must be > 0; the same month with the plain
+   curve engine must give the identical ``reg_index`` and fields within
+   rtol 1e-5.
+5. Timings with CUDA events (kernel vs plain, ``oi()``, the month step and
+   its AMF-recalculation part) and the host clock (regrid s/orbit, the
+   driver's month, its host assembly).
+
+Reductions from a real deployment: a real OMI month is ~430 orbits, whose
+inputs (430 x 872 B x 207,936 cells ~ 78 GB) would fill the 80 GB card, so
+the month is cut to 60 orbits, the repo's own synthetic month.  Widths,
+levels and grids are the products' own.  The data are synthetic, made from
+numpy seeds.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it lists
+each kernel with its launch count, error and times.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+N_ORBITS = 60
+HEADLINE = (1440, 2880)
+FACTORS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` runs, between CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def variances(n: int, seed: int, nan_frac: float = 0.2):
+    """Sa, So for ``n`` cells as the OI sees them (bench.make_fields' law)."""
+    rng = np.random.default_rng(seed)
+    xa = np.abs(rng.normal(3.0, 1.0, n))
+    sa = (xa * 0.5) ** 2
+    so = np.abs(rng.normal(0.4, 0.1, n)) ** 2
+    bad = rng.random(n) < nan_frac
+    sa[bad] = np.nan
+    so[bad] = np.nan
+    return sa, so
+
+
+def oi_fields(shape, seed: int):
+    """xa, y, Sa, So as bench.make_fields draws them (20% NaN cells)."""
+    rng = np.random.default_rng(seed)
+    xa = np.abs(rng.normal(3.0, 1.0, shape))
+    y = xa * rng.uniform(0.7, 1.4, shape) + rng.normal(0, 0.3, shape)
+    sa = (xa * 0.5) ** 2
+    so = np.abs(rng.normal(0.4, 0.1, shape)) ** 2
+    nan = rng.random(shape) < 0.2
+    for f in (xa, y, sa, so):
+        f[nan] = np.nan
+    return xa, y, sa, so
+
+
+def compare_curve(u, regs, count, oi_scan, what: str):
+    """Kernel vs plain curve for one u (checked to FACTORS_RTOL, the kernel
+    bitwise equal on repeat); returns (max_abs_err, kernel curve, plain curve)."""
+    dtype = u.dtype
+    k = oi_scan.ak_curve_sums_kernel(u, regs)
+    p = oi_scan.ak_curve_sums_plain(u, regs)
+    k2 = oi_scan.ak_curve_sums_kernel(u, regs)
+    torch.cuda.synchronize()
+    check(torch.equal(k, k2), f"{what}: two kernel runs differ")
+    kc = k.cpu().numpy() / count if count else np.full(regs.numel(), np.nan)
+    pc = p.double().cpu().numpy() / count if count else np.full(regs.numel(), np.nan)
+    check(np.array_equal(np.isnan(kc), np.isnan(pc)), f"{what}: NaN patterns differ")
+    err = float(np.nanmax(np.abs(kc - pc))) if np.isfinite(kc).any() else 0.0
+    if np.isfinite(kc).any():
+        np.testing.assert_allclose(kc, pc, rtol=FACTORS_RTOL[dtype], atol=0,
+                                   err_msg=what)
+    return err, kc, pc
+
+
+def phase_kernel(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np):
+    log("== phase 2: ak_curve kernel vs plain")
+    results = {}
+    n = HEADLINE[0] * HEADLINE[1]
+    sa, so = variances(n, seed=0)
+    for dtype in (torch.float32, torch.float64):
+        u, valid = curve_inputs(torch.as_tensor(sa, dtype=dtype, device=dev),
+                                torch.as_tensor(so, dtype=dtype, device=dev))
+        u = u.contiguous()
+        regs = torch.as_tensor(regs_np, dtype=dtype, device=dev)
+        count = int(valid.sum())
+        err, kc, pc = compare_curve(u, regs, count, oi_scan, f"{n} cells {dtype}")
+        ki, pi = kneedle_index_np(regs_np, kc), kneedle_index_np(regs_np, pc)
+        check(ki == pi, f"knee differs: kernel {ki} plain {pi}")
+        ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(u, regs), reps=20)
+        plain_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_plain(u, regs), reps=5)
+        results[str(dtype)] = (err, ms, plain_ms)
+        log(f"kernel vs plain {n} cells x {regs.numel()} factors {dtype}: "
+            f"max_abs_err {err:.3e}, knee {ki} == {pi}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+    edge = [("N=1", 1, 99, 0.0), ("N=2049", 2049, 99, 0.1), ("N=5*2048+3", 5 * 2048 + 3, 99, 0.1),
+            ("R=1", 10007, 1, 0.1), ("R=128", 10007, 128, 0.1), ("all-invalid", 5000, 99, 1.0)]
+    for name, n_e, nfac, nan_frac in edge:
+        sa_e, so_e = variances(n_e, seed=n_e + nfac, nan_frac=nan_frac)
+        for dtype in (torch.float32, torch.float64):
+            u, valid = curve_inputs(torch.as_tensor(sa_e, dtype=dtype, device=dev),
+                                    torch.as_tensor(so_e, dtype=dtype, device=dev))
+            regs = torch.as_tensor(np.linspace(0.1, 9.9, nfac), dtype=dtype, device=dev)
+            count = int(valid.sum())
+            err, kc, _ = compare_curve(u.contiguous(), regs, count, oi_scan,
+                                       f"{name} {dtype}")
+            if name == "all-invalid":
+                check(count == 0 and np.isnan(kc).all(), "all-invalid curve is not NaN")
+        log(f"edge case {name}: kernel == plain (float32, float64)")
+    return results
+
+
+def reference_oi_numpy(xa, y, sa, so, kneedle_index_np):
+    """The reference's literal per-factor loop (optimal_interpolation.py:6-52)."""
+    y = np.where(y < 0, 0.0, y)
+    regs = np.arange(0.1, 10.0, 0.1)
+    with np.errstate(all="ignore"):
+        curve = np.array([np.nanmean(1.0 - (1.0 - sa * r / (sa * r + so)) * sa * r / (sa * r))
+                          for r in regs])
+        idx = kneedle_index_np(regs, curve, fallback=0)
+        r = regs[idx]
+        k = sa * r / (sa * r + so)
+        sb = (1.0 - k) * sa * r
+        ak = 1.0 - sb / (sa * r)
+    inc = k * (y - xa)
+    return xa + inc, ak, inc, np.sqrt(sb), idx
+
+
+def phase_oi(dev, oi, kneedle_index_np):
+    log("== phase 3: oi() kernel engine vs plain engine")
+    fields = oi_fields(HEADLINE, seed=1)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in fields]
+    rk = oi(*args, curve_impl="kernel")
+    rp = oi(*args, curve_impl="plain")
+    check(int(rk.reg_index) == int(rp.reg_index),
+          f"oi reg_index kernel {int(rk.reg_index)} vs plain {int(rp.reg_index)}")
+    for name in ("xb", "averaging_kernel", "increment", "error"):
+        a, b = getattr(rk, name).cpu().numpy(), getattr(rp, name).cpu().numpy()
+        check(a.shape == HEADLINE, f"oi {name} shape {a.shape}")
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=0, equal_nan=True, err_msg=name)
+    ms = cuda_ms(lambda: oi(*args, curve_impl="kernel"), reps=10)
+    plain_ms = cuda_ms(lambda: oi(*args, curve_impl="plain"), reps=5)
+    cells_per_s = HEADLINE[0] * HEADLINE[1] / (ms * 1e-3)
+    log(f"oi() {HEADLINE[0]}x{HEADLINE[1]} float32: reg_index {int(rk.reg_index)} "
+        f"(factor {float(rk.reg_factor):.1f}) identical; kernel engine {ms:.4f} ms "
+        f"({cells_per_s:.4e} cells/s), plain engine {plain_ms:.4f} ms")
+
+    small = [f.astype(np.float64) for f in oi_fields((64, 96), seed=2)]
+    small[1][0, :5] = -1.0  # the y < 0 clamp
+    small[2][1, :5] = 0.0  # Sa == 0 -> NaN averaging kernel
+    res = oi(*(torch.as_tensor(a, device=dev) for a in small), curve_impl="kernel")
+    ref = reference_oi_numpy(*small, kneedle_index_np)
+    check(int(res.reg_index) == ref[4], "small oi knee differs from the numpy reference")
+    for name, want in zip(("xb", "averaging_kernel", "increment", "error"), ref[:4]):
+        np.testing.assert_allclose(getattr(res, name).cpu().numpy(), want, rtol=1e-10,
+                                   atol=1e-12, equal_nan=True, err_msg=f"small {name}")
+    log("oi() 64x96 float64 vs the numpy reference: agree (rtol 1e-10), knee exact")
+    return ms, plain_ms
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    from oisat_tpu_torch.driver import oisatgmi
+    from oisat_tpu_torch.entry import synthetic_month
+    from oisat_tpu_torch.ops.kernels import oi_scan
+    from oisat_tpu_torch.ops.kernels._build import build_log, load_library
+    from oisat_tpu_torch.ops.knee import kneedle_index_np
+    from oisat_tpu_torch.ops.oi import curve_inputs, oi, regularization_grid
+    from oisat_tpu_torch.parallel.analysis import _amf_recal_month, full_month_step
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    dev = torch.device("cuda", 0)
+    smi = smi_line()
+    log("== phase 1: device and build")
+    log(f"nvidia-smi: {smi}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    load_library("ak_curve")
+    log(f"built ak_curve.cu for sm_90a in {time.perf_counter() - t0:.2f} s")
+    for line in build_log("ak_curve").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    regs_np = regularization_grid()
+    kres = phase_kernel(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np)
+    oi_ms, oi_plain_ms = phase_oi(dev, oi, kneedle_index_np)
+
+    log(f"== phase 4: the {N_ORBITS}-orbit month through analyze_month_fused")
+    t0 = time.perf_counter()
+    orbits, ctm, lon2d, lat2d = synthetic_month(N_ORBITS, seed=0)
+    log(f"synthetic month built on the host in {time.perf_counter() - t0:.1f} s: "
+        f"{N_ORBITS} orbits {orbits[0].vcd.shape} x {orbits[0].pressure_mid.shape[0]} levels, "
+        f"CTM {ctm.pressure_mid.shape}, grid {lat2d.shape}")
+
+    torch.cuda.reset_peak_memory_stats()
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path: regrid every orbit, then the fused month ----
+    per_orbit = []
+    grans = []
+    for o in orbits:
+        t0 = time.perf_counter()
+        g = regrid_granule(1, 0.25, o, lon2d, lat2d, dev, flag_thresh=0.5)
+        torch.cuda.synchronize()
+        per_orbit.append(time.perf_counter() - t0)
+        grans.append(g)
+    obj = oisatgmi()
+    obj.reader_obj = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
+    t0 = time.perf_counter()
+    out = obj.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01")
+    torch.cuda.synchronize()
+    month_s = time.perf_counter() - t0
+    launches = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the main path ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_ok = sum(g is not None for g in grans)
+    check(n_ok == N_ORBITS, f"only {n_ok} of {N_ORBITS} orbits regridded")
+    check(launches > 0, "the month never launched the ak_curve kernel")
+    regrid_steady = float(np.mean(per_orbit[1:]))
+    log(f"regrid: first orbit {per_orbit[0]:.3f} s (fine grid + upscaler build), "
+        f"then {regrid_steady:.4f} s/orbit (mean of {N_ORBITS - 1})")
+    post = obj.ctm_averaged_vcd_corrected
+    check(post.shape == lat2d.shape, f"posterior shape {post.shape}")
+    cells = post.size
+    finite = {name: int(np.isfinite(getattr(obj, name)).sum()) for name in
+              ("sat_averaged_vcd", "ctm_averaged_vcd", "ctm_averaged_vcd_corrected",
+               "ak_OI", "error_OI")}
+    check(finite["ctm_averaged_vcd_corrected"] > 0.1 * cells, f"too few analysed cells {finite}")
+    reg_index = int(out.oi.reg_index)
+    check(0 <= reg_index < regs_np.size, f"reg_index {reg_index}")
+    diag = obj.oi_diagnostics
+    check(diag["n"] > 0 and np.isfinite(diag["chi2"]), f"innovation stats {diag}")
+    xa, y = obj.ctm_averaged_vcd, obj.sat_averaged_vcd
+    both = np.isfinite(xa) & np.isfinite(y) & np.isfinite(obj.sat_averaged_error)
+    check(np.isfinite(post[both]).all(), "posterior not finite where prior and obs are")
+    log(f"month: kernel launches {launches}, regularization factor "
+        f"{float(out.oi.reg_factor):.1f} (index {reg_index}), dtype {out.oi.xb.dtype}, "
+        f"finite cells of {cells}: {finite}")
+    log(f"month: innovation n={int(diag['n'])} OmB {diag['omb_mean']:+.4f}/{diag['omb_rms']:.4f} "
+        f"OmA {diag['oma_mean']:+.4f}/{diag['oma_rms']:.4f} chi2 {diag['chi2']:.4f}")
+    log(f"month: analyze_month_fused {month_s:.3f} s (host clock, incl. CTM matching "
+        f"and the H2D of the matched slices); peak device memory {peak_gb:.2f} GB")
+
+    ref = oisatgmi()
+    ref.reader_obj = obj.reader_obj
+    ref_out = ref.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01",
+                                      curve_impl="plain")
+    check(int(ref_out.oi.reg_index) == reg_index,
+          f"month reg_index kernel {reg_index} vs plain {int(ref_out.oi.reg_index)}")
+    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI",
+                 "sat_averaged_vcd", "ctm_averaged_vcd"):
+        np.testing.assert_allclose(getattr(obj, name), getattr(ref, name), rtol=1e-5,
+                                   atol=0, equal_nan=True, err_msg=name)
+    log("month: plain curve engine gives the identical reg_index and fields (rtol 1e-5)")
+    del ref_out, out
+
+    log("== phase 5: timings")
+    t0 = time.perf_counter()
+    inputs = oisatgmi._fused_inputs([ctm], grans)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    kw = dict(bias_offset=0.32, bias_slope=0.63)
+    amf_ms = cuda_ms(lambda: _amf_recal_month(inputs), reps=3)
+    step_ms = cuda_ms(lambda: full_month_step(inputs, curve_impl="kernel", **kw), reps=3)
+    step_plain_ms = cuda_ms(lambda: full_month_step(inputs, curve_impl="plain", **kw), reps=3)
+    step = full_month_step(inputs, **kw)
+    xa = step.ctm_vcd
+    u, valid = curve_inputs((xa * 50.0 / 100.0) ** 2, step.sat_error ** 2)
+    u = u.reshape(-1).contiguous()
+    regs = torch.as_tensor(regs_np, dtype=u.dtype, device=dev)
+    month_err, _, _ = compare_curve(u, regs, int(valid.sum()), oi_scan, "month curve")
+    k_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(u, regs), reps=50)
+    p_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_plain(u, regs), reps=10)
+    g_cells = int(np.prod(inputs.vcd.shape))
+    log(f"full_month_step ({inputs.vcd.shape[0]} granules, {inputs.sat_pmid.dtype}/"
+        f"{inputs.ctm_pc.dtype} inputs): kernel engine {step_ms:.2f} ms, plain engine "
+        f"{step_plain_ms:.2f} ms ({g_cells / (step_ms * 1e-3):.4e} granule-cells/s)")
+    log(f"month breakdown: host assembly (_fused_inputs: CTM matching, float64 partial "
+        f"columns, H2D, stacking) {assemble_s:.3f} s; in the step: AMF recalculation "
+        f"{amf_ms:.2f} ms, averaging + OI + diagnostics {step_ms - amf_ms:.2f} ms")
+    log(f"ak_curve at the month's shape ({u.numel()} cells x {regs.numel()} factors, "
+        f"{u.dtype}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, max_abs_err {month_err:.3e}")
+    for key, (err, ms, pms) in kres.items():
+        log(f"ak_curve at {HEADLINE[0] * HEADLINE[1]} cells {key}: kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, max_abs_err {err:.3e}")
+    log(f"oi() {HEADLINE[0]}x{HEADLINE[1]} float32: kernel engine {oi_ms:.4f} ms, "
+        f"plain engine {oi_plain_ms:.4f} ms; regrid {regrid_steady:.4f} s/orbit; "
+        f"analyze_month_fused {month_s:.3f} s")
+
+    log(f"nvidia-smi: {smi_line()}")
+    print(json.dumps({"kernels": [{
+        "name": "ak_curve",
+        "route": "cuda",
+        "source": "oisat_tpu_torch/csrc/ak_curve.cu",
+        "replaces": "oisat_tpu/ops/kernels/oi_scan.py:46",
+        "launches": launches,
+        "max_abs_err": month_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "cells": u.numel(),
+        "factors": regs.numel(),
+        "dtype": str(u.dtype).replace("torch.", ""),
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

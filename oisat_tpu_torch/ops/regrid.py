@@ -1,0 +1,65 @@
+"""Device-side regrid application: gather + weighted sum, box filters.
+
+Counterpart of :mod:`oisat_tpu.ops.regrid` (reference
+oisatgmi/interpolator.py:44-97, :100-291).  A host-built
+:class:`oisat_tpu.ops.weights.SparsePlan`, moved to the device by
+:func:`oisat_tpu_torch.convert.plan_to_torch`, moves every row of a
+(F, Npix) field batch onto the target grid in one gather + weighted sum.
+The box filter reproduces scipy ``convolve2d(mode='same', boundary='symm')``
+(even kernels included); error fields use the squared kernel
+``1/(ky*kx)^2`` (reference ``_boxfilter2``).
+
+``pad_to_bucket`` and plan compaction are TPU/tunnel workarounds and are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["apply_plan_arrays", "boxfilter_same_symm"]
+
+
+def apply_plan_arrays(z: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """``out[..., t] = sum_k w[t, k] * z[..., idx[t, k]]``; NaN where ``mask``.
+
+    ``z``: (..., Npix) source values (NaN = bad, propagates); ``idx`` (T, K)
+    int64, ``w`` (T, K), ``mask`` (T,) bool.  Returns (..., T).  The K terms
+    are added in order k = 0..K-1, one (..., T) gather at a time (no
+    (..., T, K) intermediate)."""
+    wz = w.to(z.dtype)
+    out = z[..., idx[:, 0]] * wz[:, 0]
+    for k in range(1, idx.shape[1]):
+        out = out + z[..., idx[:, k]] * wz[:, k]
+    return torch.where(mask, torch.full_like(out, math.nan), out)
+
+
+def _symmetric_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+    """Source rows of numpy's ``mode='symmetric'`` padding (edge repeated)."""
+    return torch.as_tensor(np.pad(np.arange(n), (lo, hi), mode="symmetric"),
+                           device=device)
+
+
+def boxfilter_same_symm(z: torch.Tensor, ky: int, kx: int,
+                        squared: bool = False) -> torch.Tensor:
+    """Box filter with scipy ``convolve2d(mode='same', boundary='symm')``
+    semantics over the last two axes of ``z`` (..., H, W).
+
+    ``squared=True`` uses the error-variance kernel ``ones/(ky*kx)**2``.
+    NaNs spread over the window exactly like the reference's convolution."""
+    h, w = z.shape[-2:]
+    # 'same' centering of a full convolution: pad_lo = k//2, pad_hi = (k-1)//2
+    rows = _symmetric_index(h, ky // 2, (ky - 1) // 2, z.device)
+    cols = _symmetric_index(w, kx // 2, (kx - 1) // 2, z.device)
+    zp = z.index_select(-2, rows).index_select(-1, cols)
+    s = None
+    for dy in range(ky):
+        for dx in range(kx):
+            win = zp[..., dy:dy + h, dx:dx + w]
+            s = win if s is None else s + win
+    denom = (ky * kx) ** 2 if squared else ky * kx
+    return s / denom

@@ -1,0 +1,124 @@
+"""Vertical observation operators, batched over grid cells, on torch tensors.
+
+Counterpart of :mod:`oisat_tpu.ops.vertical` (reference
+oisatgmi/amf_recal.py:51-56, :93-119, :160-183): the per-pixel scipy
+``interp1d`` loop becomes one column-wise log-pressure interpolation over the
+whole grid, and the level sums are NaN-masked reductions.
+
+Level stacks carry the level axis third from last: (L, H, W) for one
+granule, (G, L, H, W) for a granule batch (the JAX package's ``vmap``
+becomes that explicit leading axis); 2-D fields are (H, W) / (G, H, W).
+
+Physical constants match the reference: Mair = 28.97e-3 kg/mol,
+g = 9.80665 m/s^2, N_A = 6.02214076e23.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["MAIR", "GRAV", "N_A", "partial_column", "interp_linear_batched",
+           "amf_recal_fields", "amf_recal_noak_fields"]
+
+MAIR = 28.97e-3
+GRAV = 9.80665
+N_A = 6.02214076e23
+
+
+def partial_column(delta_p, profile_ppbv):
+    """CTM gas partial column [1e15 molec/cm^2] from delta-p [hPa] and ppbv
+    (numpy arrays or tensors; reference amf_recal.py:51-56)."""
+    return delta_p * profile_ppbv / GRAV / MAIR * N_A * 1e-4 * 1e-15 * 100.0 * 1e-9
+
+
+def _nan_like(x):
+    return torch.full_like(x, math.nan)
+
+
+def interp_linear_batched(xp, fp, xq, extrapolate: bool):
+    """Column-wise linear interpolation, batched over trailing grid axes.
+
+    ``xp``/``fp``: (Ls, ...) source abscissae/values; ``xq``: (Lt, ...)
+    query abscissae.  scipy ``interp1d`` semantics as in the JAX twin:
+    columns in either monotonic order, ``extrapolate=True`` extends the end
+    segments, ``False`` fills NaN outside the data range.  A column with any
+    non-finite or non-monotonic abscissa is NaN as a whole -- the documented
+    deviation of oisat_tpu/ops/vertical.py:102-115.
+
+    Bracketing is ``searchsorted`` on the ascending copy of each column (a
+    descending column is flipped first) plus ``gather``.
+    """
+    dt = torch.promote_types(xp.dtype, xq.dtype)
+    xp = torch.movedim(xp, 0, -1).to(dt)  # (..., Ls)
+    fp = torch.movedim(fp, 0, -1)
+    xq = torch.movedim(xq, 0, -1).to(dt)  # (..., Lt)
+    ls = xp.shape[-1]
+    desc = xp[..., :1] > xp[..., -1:]
+    xs = torch.where(desc, xp.flip(-1), xp).contiguous()
+    fs = torch.where(desc, fp.flip(-1), fp)
+    # searchsorted(right) on the ascending column: the number of xp <= xq
+    cnt = torch.searchsorted(xs, xq.contiguous(), right=True)
+    hi = cnt.clamp(1, ls - 1)
+    lo = hi - 1
+    x0 = xs.gather(-1, lo)
+    x1 = xs.gather(-1, hi)
+    f0 = fs.gather(-1, lo)
+    f1 = fs.gather(-1, hi)
+    t = (xq - x0) / (x1 - x0)
+    out = f0 + t * (f1 - f0)
+    if not extrapolate:
+        # data range = the endpoint pair, whichever order the column runs
+        lo_end = torch.minimum(xp[..., :1], xp[..., -1:])
+        hi_end = torch.maximum(xp[..., :1], xp[..., -1:])
+        out = torch.where((xq < lo_end) | (xq > hi_end), _nan_like(out), out)
+    step = torch.diff(xp, dim=-1)
+    colbad = ~((step >= 0).all(-1, keepdim=True) | (step <= 0).all(-1, keepdim=True))
+    colbad |= ~torch.isfinite(xp).all(-1, keepdim=True)
+    out = torch.where(colbad, _nan_like(out), out)
+    return torch.movedim(out, -1, 0)
+
+
+def _nansum_levels(x):
+    """nansum over the level axis (-3) with numpy semantics (all-NaN -> 0)."""
+    return torch.where(torch.isnan(x), torch.zeros_like(x), x).sum(-3)
+
+
+def amf_recal_fields(sat_pmid, sat_sw, ctm_pmid, ctm_pc, tropopause, vcd,
+                     amf_old, has_trop: bool):
+    """AMF recalculation over the grid (reference amf_recal.py:93-119, :173-183).
+
+    sat_pmid/sat_sw: ([G,] Ls, H, W); ctm_pmid/ctm_pc: ([G,] Lc, H, W);
+    tropopause/vcd/amf_old: ([G,] H, W).  Returns (new_amf, vcd_corrected,
+    model_vcd) with the reference's NaN masking applied."""
+    sw_i = interp_linear_batched(torch.log(sat_pmid).movedim(-3, 0),
+                                 sat_sw.movedim(-3, 0),
+                                 torch.log(ctm_pmid).movedim(-3, 0),
+                                 extrapolate=True).movedim(0, -3)
+    sw_i = torch.where(torch.isinf(sw_i), torch.zeros_like(sw_i), sw_i)
+    pc = ctm_pc
+    if has_trop:
+        above = ctm_pmid < tropopause.unsqueeze(-3)
+        sw_i = torch.where(above, _nan_like(sw_i), sw_i)
+        pc = torch.where(above, _nan_like(pc), pc)
+    scd = _nansum_levels(sw_i * pc)
+    model_vcd = _nansum_levels(pc)
+    ratio = scd / model_vcd
+    new_amf = torch.where(model_vcd != 0, ratio, _nan_like(ratio))
+    new_amf = torch.where(torch.isnan(vcd), _nan_like(new_amf), new_amf)
+    vcd_corr = amf_old * vcd / new_amf
+    # NaN vcd is subsumed: vcd NaN -> vcd_corr NaN -> masked here
+    model_vcd = torch.where(torch.isnan(vcd_corr) | torch.isinf(vcd_corr),
+                            _nan_like(model_vcd), model_vcd)
+    return new_amf, vcd_corr, model_vcd
+
+
+def amf_recal_noak_fields(ctm_pmid, ctm_pc, tropopause, vcd, has_trop: bool):
+    """No-scattering-weights branch (reference amf_recal.py:160-171):
+    tropopause-mask the partial columns, sum, NaN where the retrieval is NaN."""
+    pc = ctm_pc
+    if has_trop:
+        pc = torch.where(ctm_pmid < tropopause.unsqueeze(-3), _nan_like(pc), pc)
+    model_vcd = _nansum_levels(pc)
+    return torch.where(torch.isnan(vcd), _nan_like(model_vcd), model_vcd)

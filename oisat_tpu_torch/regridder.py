@@ -1,0 +1,265 @@
+"""Granule regridding: host weight building + one device apply.
+
+Counterpart of :mod:`oisat_tpu.regridder` for ``satellite_amf`` granules
+(reference oisatgmi/interpolator.py:100-291):
+
+  host   build the SparsePlan pixels -> fine grid for the granule's geometry
+         and the Upscaler fine grid -> CTM grid (``oisat_tpu.ops.weights``,
+         ``oisat_tpu.native``: numpy/scipy/C++, no jax);
+  device stack every 2-D field and every level of every 3-D field into one
+         (F, Npix) batch -> gather + weighted sum -> box filter -> nearest
+         map onto the CTM grid, and the uncertainty through the same path
+         as a variance with the squared box kernel, sqrt at the end.
+
+The TPU package's transfer workarounds are not ported: no f16 narrowing,
+no plan compaction, no affine carrier level for the pressure stack, no
+pixel-axis buckets, no lazy/pending collection.  SSMIS, the GOSAT filler
+and the SPMD mesh regrid are ROADMAP queue 1 items 9 and 13.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from oisat_tpu.ops.weights import (
+    SparsePlan,
+    build_plan,
+    build_plan_structured,
+    diag_threshold,
+    fine_grid,
+    grid_spacing,
+)
+from oisat_tpu.utils.lru import LockedLRU
+from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch.convert import plan_to_torch
+from oisat_tpu_torch.datamodel import satellite_amf
+from oisat_tpu_torch.ops.regrid import apply_plan_arrays, boxfilter_same_symm
+
+__all__ = ["Upscaler", "make_upscaler", "regrid_granule"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Upscaler:
+    """Fine grid -> coarse target grid mapping (reference ``_upscaler``):
+    a (ky, kx) box filter, then the nearest-neighbour ``plan`` (leaves on
+    the device) onto the target grid.
+
+    ``needed=True`` means the source is coarser than the target: fields pass
+    through and the *model* would have to be upscaled instead (reference
+    interpolator.py:92-97)."""
+
+    needed: bool
+    ky: int
+    kx: int
+    plan: Optional[SparsePlan]
+    out_lon: np.ndarray
+    out_lat: np.ndarray
+
+
+def _geom_key(lon2d, lat2d):
+    """Content-derived cache key of a 2-D grid geometry: shape, corners and
+    coordinate sums (as oisat_tpu.regridder._geom_key)."""
+    lon2d = np.asarray(lon2d, np.float64)
+    lat2d = np.asarray(lat2d, np.float64)
+    return (lon2d.shape, float(lon2d.flat[0]), float(lon2d.flat[-1]),
+            float(lat2d.flat[0]), float(lat2d.flat[-1]),
+            float(lon2d.sum()), float(lat2d.sum()),
+            float(np.abs(lon2d).sum()), float(np.abs(lat2d).sum()))
+
+
+# the reference's "too far" cutoff: targets farther than 2 x the threshold
+# from the nearest source pixel are NaN (interpolator.py:16-33)
+_FAR_FACTOR = 2.0
+
+# the fine grid and the fine->CTM map depend only on the CTM geometry, which
+# every granule of a run shares; per-orbit swath plans are not cached
+_fine_grid_cache = LockedLRU(8)
+_upscaler_cache = LockedLRU(16)
+
+
+def _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size):
+    key = (_geom_key(ctm_lon2d, ctm_lat2d), float(grid_size))
+    hit = _fine_grid_cache.get(key)
+    if hit is None:
+        hit = fine_grid(ctm_lon2d, ctm_lat2d, grid_size)
+        _fine_grid_cache.put(key, hit)
+    return hit
+
+
+def make_upscaler(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, grid_size: float,
+                  threshold: float, device, fast: bool = True) -> Upscaler:
+    """The reference ``_upscaler`` decision + mapping (interpolator.py:48-97):
+    KD-nearest with the 2x cutoff, its plan on ``device``.  ``fast`` takes
+    the native structured-grid builder; cached per (geometries, options,
+    device)."""
+    dev = resolve_device(device)
+    tgt_dlon, tgt_dlat = grid_spacing(tgt_lon2d, tgt_lat2d)
+    if not (tgt_dlon >= grid_size or tgt_dlat >= grid_size):
+        return Upscaler(True, 1, 1, None, src_lon2d, src_lat2d)
+    key = (_geom_key(src_lon2d, src_lat2d), _geom_key(tgt_lon2d, tgt_lat2d),
+           float(grid_size), float(threshold), fast, str(dev))
+    cached = _upscaler_cache.get(key)
+    if cached is not None:
+        return cached
+    kx = max(int(np.floor(tgt_dlon / grid_size)), 1)
+    ky = max(int(np.floor(tgt_dlat / grid_size)), 1)
+    plan = _granule_plan(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, threshold,
+                         method=4, fast=fast)
+    if plan is None:
+        raise RuntimeError("upscaler weight build failed for a regular grid "
+                           "geometry (degenerate fine/CTM grid?)")
+    up = Upscaler(False, ky, kx, plan_to_torch(plan, dev), tgt_lon2d, tgt_lat2d)
+    _upscaler_cache.put(key, up)
+    return up
+
+
+def _granule_plan(src_lon, src_lat, tgt_lon2d, tgt_lat2d, threshold: float,
+                  method: int, fast: bool):
+    """The source-pixel -> target-grid SparsePlan (host numpy) for one
+    geometry, or None when the swath cannot be triangulated (the reference
+    skips such granules, interpolator.py:151-155).  ``fast`` tries the native
+    structured builder first (2-D pixel grids, methods 1/2/4)."""
+    plan = None
+    if fast and method in (1, 2, 4) and np.ndim(src_lon) == 2:
+        plan = build_plan_structured(src_lon, src_lat, tgt_lon2d, tgt_lat2d,
+                                     threshold=threshold, far_factor=_FAR_FACTOR,
+                                     method=method)
+    if plan is None:
+        plan = build_plan(np.asarray(src_lon).ravel(), np.asarray(src_lat).ravel(),
+                          tgt_lon2d, tgt_lat2d, method=method,
+                          threshold=threshold, far_factor=_FAR_FACTOR)
+    return plan
+
+
+def _quality_mask(quality_flag, flag_thresh: float) -> np.ndarray:
+    """QA mask as the reference builds it: 1.0 where flag > thresh else NaN
+    (interpolator.py:124-127), float32 like the regridded fields."""
+    m = (np.asarray(quality_flag) > flag_thresh).astype(np.float32)
+    m[m != 1.0] = np.nan
+    return np.squeeze(m)
+
+
+def _regrid_device_impl(batch, err, idx, w, mask, up_idx, up_w, up_mask,
+                        fine_shape, ky: int, kx: int, passthrough: bool):
+    """The per-granule device pipeline: the value batch and the error
+    variance onto the fine grid, box filter, map onto the CTM grid.  ``err``
+    arrives as the raw uncertainty and is squared here."""
+    err = err * err
+    fine = apply_plan_arrays(batch, idx, w, mask).reshape(batch.shape[:-1] + fine_shape)
+    fine_err = apply_plan_arrays(err, idx, w, mask).reshape(err.shape[:-1] + fine_shape)
+    if passthrough:
+        return fine, fine_err
+    zf = boxfilter_same_symm(fine, ky, kx)
+    zef = boxfilter_same_symm(fine_err, ky, kx, squared=True)
+    out = apply_plan_arrays(zf.reshape(zf.shape[:-2] + (-1,)), up_idx, up_w, up_mask)
+    out_err = apply_plan_arrays(zef.reshape(zef.shape[:-2] + (-1,)), up_idx, up_w, up_mask)
+    return out, out_err
+
+
+def _finish_device_fields(gridded, err_gridded, layout, hw):
+    """Post-processing on the device: the (H, W) reshape, the error sqrt,
+    the named 2-D row picks and the contiguous 3-D stack slices.  ``layout``
+    is the batch row order: 2-D names, then ``"name:z"`` stack rows."""
+    gridded = gridded.reshape(gridded.shape[:1] + tuple(hw))
+    err_gridded = err_gridded.reshape(err_gridded.shape[:1] + tuple(hw))
+    idx = {n: i for i, n in enumerate(layout)}
+    out = {n: gridded[i] for n, i in idx.items() if ":" not in n}
+    out["uncertainty"] = torch.sqrt(err_gridded[0])
+    stacks: dict = {}
+    for n in layout:
+        if ":" in n:
+            base = n.rsplit(":", 1)[0]
+            stacks[base] = stacks.get(base, 0) + 1
+    for base, n_lv in stacks.items():
+        i0 = idx[f"{base}:0"]  # z-rows are contiguous in the batch
+        out[base] = gridded[i0:i0 + n_lv]
+    return out
+
+
+def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
+                   ctm_lon2d: np.ndarray, ctm_lat2d: np.ndarray, device,
+                   flag_thresh: float = 0.75, fast_swath: bool = True):
+    """Regrid one ``satellite_amf`` granule (host numpy leaves) onto the CTM
+    grid; returns a ``satellite_amf`` whose fields are float32 tensors on
+    ``device``, or None when the granule cannot be triangulated or misses
+    the domain (reference interpolator.py:151-155, :165-167).
+
+    ``fast_swath`` takes the native structured-swath weight builder
+    (production); ``False`` takes the scipy qhull/cKDTree builders that
+    bit-match the reference (the JAX package's ``OISAT_PARITY=1`` mode).
+    """
+    if not isinstance(sat_data, satellite_amf):
+        raise TypeError(f"regrid_granule ports satellite_amf granules only, got "
+                        f"{type(sat_data).__name__} (other kinds: ROADMAP queue 1 item 9)")
+    dev = resolve_device(device)
+    threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
+    lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
+    plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
+                         lons_fine, lats_fine, grid_size, method=interpolator_type,
+                         fast=fast_swath)
+    if plan is None:
+        return None
+    upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
+                         threshold_ctm, dev, fast=fast_swath)
+    mask = _quality_mask(sat_data.quality_flag, flag_thresh)
+
+    names: list = []
+    rows: list = []
+
+    def add2d(name, arr):
+        names.append(name)
+        rows.append(np.squeeze(np.asarray(arr)))
+
+    def add3d(name, arr):
+        a = np.asarray(arr)
+        for z in range(a.shape[0]):
+            names.append(f"{name}:{z}")
+            rows.append(np.squeeze(a[z]))
+
+    add2d("vcd", sat_data.vcd)
+    add2d("amf", sat_data.amf)
+    if np.size(sat_data.tropopause) != 1:
+        add2d("tropopause", sat_data.tropopause)
+    has_sw = np.size(sat_data.scattering_weights) != 1
+    if has_sw:
+        add3d("scattering_weights", sat_data.scattering_weights)
+        add3d("pressure_mid", sat_data.pressure_mid)
+
+    # cast first, then the QA multiply (mask is exactly 1.0 or NaN)
+    batch = np.stack([(np.asarray(r, np.float32) * mask).ravel() for r in rows])
+    err = (np.asarray(np.squeeze(sat_data.uncertainty), np.float32) * mask).ravel()[None]
+    plan_t = plan_to_torch(plan, dev)
+    if upsc.needed:
+        up = (None, None, None)
+        hw = plan.out_shape
+    else:
+        up = (upsc.plan.idx, upsc.plan.w, upsc.plan.mask)
+        hw = tuple(upsc.out_lat.shape)
+    out, out_err = _regrid_device_impl(
+        torch.as_tensor(batch, device=dev), torch.as_tensor(err, device=dev),
+        plan_t.idx, plan_t.w, plan_t.mask, *up, plan.out_shape,
+        upsc.ky, upsc.kx, upsc.needed)
+    d = _finish_device_fields(out, out_err, tuple(names), hw)
+
+    vcd = d["vcd"]
+    if bool(torch.isnan(vcd).all()):
+        return None  # granule misses the analysis domain
+    nz = np.shape(sat_data.pressure_mid)[0] if np.size(sat_data.pressure_mid) > 1 else 0
+    if has_sw:
+        sw, pmid = d["scattering_weights"], d["pressure_mid"]
+    else:
+        sw = np.empty((1,))
+        pmid = torch.zeros((nz,) + tuple(hw), dtype=vcd.dtype, device=dev)
+    return satellite_amf(
+        vcd=vcd, amf=d["amf"], time=sat_data.time,
+        tropopause=d.get("tropopause", np.empty((1,))),
+        latitude_center=upsc.out_lat, longitude_center=upsc.out_lon,
+        latitude_corner=[], longitude_corner=[],
+        uncertainty=d["uncertainty"], quality_flag=[], pressure_mid=pmid,
+        scattering_weights=sw, ctm_upscaled_needed=upsc.needed,
+        ctm_vcd=[], ctm_time_at_sat=[], old_amf=[], new_amf=[],
+    )
