@@ -5,12 +5,14 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It needs one CUDA device, ``nvcc`` and ``nvidia-smi``; it builds the port's
-CUDA kernel from ``oisat_tpu_torch/csrc`` into ``oisat_tpu_torch/_build`` and
-imports nothing of JAX.  Phases (any failure raises, exit code != 0):
+It needs one CUDA device, ``nvcc``, ``g++`` and ``nvidia-smi``; it builds the
+port's CUDA kernels and its C++ swath-weight library from
+``oisat_tpu_torch/csrc`` into ``oisat_tpu_torch/_build`` (all at once, one
+compiler per source) and imports nothing of JAX or of the JAX package.
+Phases (any failure raises, exit code != 0):
 
-1. Device and build: the ``nvidia-smi`` name / power-limit line, the kernel
-   build time and ptxas's register report.
+1. Device and build: the ``nvidia-smi`` name / power-limit line, the build
+   time and ptxas's register report of each kernel.
 2. Kernel vs plain: the mean-AK curve sums at 4,147,200 cells (the global
    0.125 deg grid, 1440 x 2880) x 99 factors in float32 and float64, and the
    edge cases N=1, N off the tile size, all-invalid (NaN curve), R=1.
@@ -32,6 +34,28 @@ imports nothing of JAX.  Phases (any failure raises, exit code != 0):
 5. Timings with CUDA events (kernel vs plain, ``oi()``, the month step and
    its AMF-recalculation part) and the host clock (regrid s/orbit, the
    driver's month, its host assembly).
+6. The covariance kernel vs plain: B at n = 6,144 (the scan branch's
+   largest) and 10,240 (the dense branch's largest) float32, and N = 1,
+   a ragged N and all sigma = 0, within rtol 2e-4 / atol 1e-6 max sigma^2
+   (the CPU tests' bounds) and bitwise equal (the float32 scan's knee moves
+   with any ulp of B); two kernel runs are bitwise equal; times with CUDA
+   events beside the bound.
+7. The full-covariance month (``oi_method="full"``, L = 300 km): 60
+   OMI-shaped orbits crossing the CONUS window of the MERRA2-GMI grid
+   (57 x 99 = 5,643 cells, ``entry.synthetic_regional_month``), a 72-level
+   8-snapshot CTM, regridded by the native builder, then
+   ``analyze_month_fused``: the dense eigen scan with the covariance kernel
+   and the float64 exact tail on the card.  Checks: covariance launches
+   > 0, solver "dense+direct_f64_dev", the sampled float64 residual under
+   the gate, the native builder in use, a finite posterior wherever prior
+   and observation are, the kernel bitwise equal to the plain version on
+   the month's own compacted cells, and the same month with the plain
+   covariance engine giving the identical factor and fields within rtol
+   1e-9 (the tail never reads B; the factor holds only while B is bitwise
+   equal).  The driver's and ``oi_full``'s own stage times
+   (``stage_ms``: assembly, step, pull, compaction, covariance, eigh, the
+   scan's GEMMs, knee, tail, residual, ...) for the first run, the plain
+   run and a warm repeat, and the peak device memory.
 
 Reductions from a real deployment: a real OMI month is ~430 orbits, whose
 inputs (430 x 872 B x 207,936 cells ~ 78 GB) would fill the 80 GB card, so
@@ -40,7 +64,7 @@ levels and grids are the products' own.  The data are synthetic, made from
 numpy seeds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-each kernel with its launch count, error and times.
+each kernel with its launches on its path, error, times and bound.
 """
 
 from __future__ import annotations
@@ -49,6 +73,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -57,6 +82,18 @@ import torch
 N_ORBITS = 60
 HEADLINE = (1440, 2880)
 FACTORS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+KERNELS = ("ak_curve", "covariance")
+COV_SIZES = (6144, 10240)  # the dense scan's and the dense solve's largest B
+COV_EDGE = (1, 1000, 6143)  # N = 1 and N off the 32-cell tile
+COV_RTOL = 2e-4  # + atol 1e-6 * max sigma^2: the CPU tests' bounds
+LENGTH_SCALE_KM = 300.0  # run/control.yml's length_scale_km
+FULL_RTOL = 1e-9  # kernel vs plain covariance engine, after the float64 tail
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FLOP/s outside the
+# tensor cores; the card's power limit is printed beside every time
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+COV_OPS_PER_ELEMENT = 19  # covariance.cu: 2 sub, 1 add, 9 mul, 1 div, 1 neg,
+# 2 compares (the clip), 2 sin, 1 exp -- each sin / exp counted once
 
 
 def log(msg: str) -> None:
@@ -81,6 +118,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
+    """(least milliseconds, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the operations over the card's peak for ``dtype``."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ak_curve_bound(n_valid: int, n: int, nfac: int, dtype) -> tuple:
+    """u read once, the factors read once, the (R,) float64 sums written
+    once; r / (r + u) and its accumulation (an add, a divide, an add) for
+    each valid cell and factor (invalid cells add exactly 0)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms(n * item + nfac * item + nfac * 8, 3.0 * n_valid * nfac, dtype)
+
+
+def covariance_bound(n: int) -> tuple:
+    """lat, lon, sigma read once, the (n, n) float32 B written once;
+    ``COV_OPS_PER_ELEMENT`` operations per element."""
+    return bound_ms(3 * n * 4 + n * n * 4, COV_OPS_PER_ELEMENT * n * n, torch.float32)
 
 
 def smi_line() -> str:
@@ -150,7 +209,7 @@ def phase_kernel(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np):
         check(ki == pi, f"knee differs: kernel {ki} plain {pi}")
         ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(u, regs), reps=20)
         plain_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_plain(u, regs), reps=5)
-        results[str(dtype)] = (err, ms, plain_ms)
+        results[str(dtype)] = (err, ms, plain_ms, count)
         log(f"kernel vs plain {n} cells x {regs.numel()} factors {dtype}: "
             f"max_abs_err {err:.3e}, knee {ki} == {pi}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
@@ -219,13 +278,186 @@ def phase_oi(dev, oi, kneedle_index_np):
     return ms, plain_ms
 
 
+def cov_inputs(n: int, seed: int, dev, cov, zero_sigma: bool = False):
+    """(lat, lon, sigma) float32 tensors for ``n`` cells scattered over the
+    CONUS window (radians as the wrapper converts them), and sigma (numpy)."""
+    rng = np.random.default_rng(seed)
+    lat = rng.uniform(24.0, 52.0, n)
+    lon = rng.uniform(-128.0, -66.0, n)
+    sig = np.zeros(n) if zero_sigma else np.abs(rng.normal(1.5, 0.3, n))
+    return (cov.radians_f32(lat, dev), cov.radians_f32(lon, dev),
+            torch.as_tensor(sig, dtype=torch.float32, device=dev)), sig
+
+
+def compare_cov(args, sig, cov, what: str):
+    """Kernel vs plain B: within COV_RTOL / 1e-6 max sigma^2 and bitwise
+    equal, the kernel bitwise equal on repeat; returns the max_abs_err."""
+    k = cov.build_covariance_kernel(*args, LENGTH_SCALE_KM)
+    k2 = cov.build_covariance_kernel(*args, LENGTH_SCALE_KM)
+    p = cov.build_covariance_plain(*args, LENGTH_SCALE_KM)
+    torch.cuda.synchronize()
+    check(torch.equal(k, k2), f"{what}: two covariance kernel runs differ")
+    atol = 1e-6 * max(float(np.max(sig ** 2)), 1e-30)
+    check(torch.allclose(k, p, rtol=COV_RTOL, atol=atol),
+          f"{what}: covariance kernel vs plain beyond rtol {COV_RTOL} / atol {atol:.3e}")
+    # bitwise: near the knee the float32 scan's curve moves with any ulp of B
+    check(torch.equal(k, p), f"{what}: covariance kernel and plain not bitwise equal")
+    return float((k - p).abs().max())
+
+
+def phase_covariance(dev, cov):
+    log("== phase 6: covariance kernel vs plain")
+    times = {}
+    for n in COV_SIZES:
+        args, sig = cov_inputs(n, seed=n, dev=dev, cov=cov)
+        err = compare_cov(args, sig, cov, f"n={n}")
+        ms = cuda_ms(lambda: cov.build_covariance_kernel(*args, LENGTH_SCALE_KM), reps=20)
+        plain_ms = cuda_ms(lambda: cov.build_covariance_plain(*args, LENGTH_SCALE_KM), reps=5)
+        bms, by = covariance_bound(n)
+        times[n] = (ms, plain_ms, bms, by)
+        log(f"covariance n={n} float32: max_abs_err {err:.3e} (bitwise equal to plain), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), kernel at {bms / ms:.1%} of its bound")
+    for n in COV_EDGE:
+        args, sig = cov_inputs(n, seed=n, dev=dev, cov=cov)
+        compare_cov(args, sig, cov, f"n={n}")
+        log(f"edge case N={n}: kernel == plain, bitwise")
+    args, sig = cov_inputs(2049, seed=5, dev=dev, cov=cov, zero_sigma=True)
+    k = cov.build_covariance_kernel(*args, LENGTH_SCALE_KM)
+    check(not bool(k.any()), "all-zero sigma gives a nonzero B")
+    log("edge case all sigma = 0: B == 0")
+    return times
+
+
+def log_stages(what: str, stage_ms: dict, wall_s: float) -> None:
+    """The driver's stages (they sum to its wall time) and the full OI's."""
+    top = {k: v for k, v in stage_ms.items() if "." not in k}
+    sub = {k.split(".", 1)[1]: v for k, v in stage_ms.items() if k.startswith("oi_full.")}
+    log(f"{what}: analyze_month_fused {wall_s * 1e3:.2f} ms = "
+        + " + ".join(f"{k} {v:.2f}" for k, v in top.items())
+        + f" ms (sum {sum(top.values()):.2f} ms)")
+    log(f"{what}: oi_full {top.get('oi_full', 0.0):.2f} ms = "
+        + " + ".join(f"{k} {v:.2f}" for k, v in sub.items()) + " ms")
+
+
+def full_month(reader, dev, **kw):
+    """One full-covariance month through the driver with its stage times:
+    (session, wall seconds, stage milliseconds)."""
+    from oisat_tpu_torch.driver import oisatgmi
+
+    obj = oisatgmi()
+    obj.reader_obj = reader
+    stage_ms: dict = {}
+    t0 = time.perf_counter()
+    out = obj.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01",
+                                  oi_method="full", length_scale_km=LENGTH_SCALE_KM,
+                                  stage_ms=stage_ms, **kw)
+    torch.cuda.synchronize(dev)
+    return obj, out, time.perf_counter() - t0, stage_ms
+
+
+def phase_full_month(dev, cov, oi_scan, native):
+    from oisat_tpu_torch.entry import synthetic_regional_month
+    from oisat_tpu_torch.ops.oi import regularization_grid
+    from oisat_tpu_torch.ops.oi_full import DEVICE_EXACT_RESID_GATE, compact
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    log(f"== phase 7: the full-covariance month (oi_method='full', "
+        f"L = {LENGTH_SCALE_KM:g} km) on the CONUS window")
+    t0 = time.perf_counter()
+    orbits, ctm, lon2d, lat2d = synthetic_regional_month(N_ORBITS, seed=0)
+    log(f"regional month built on the host in {time.perf_counter() - t0:.1f} s: "
+        f"{len(orbits)} orbits {orbits[0].vcd.shape} x {orbits[0].pressure_mid.shape[0]} "
+        f"levels, CTM {ctm.pressure_mid.shape}, grid {lat2d.shape} = {lat2d.size} cells")
+
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    cov.build_covariance_kernel.launches = 0
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path of this slice: regrid every orbit, the full month ----
+    t0 = time.perf_counter()
+    grans = [regrid_granule(1, 0.25, o, lon2d, lat2d, dev, flag_thresh=0.5) for o in orbits]
+    torch.cuda.synchronize()
+    regrid_s = time.perf_counter() - t0
+    reader = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
+    obj, out, month_s, stage_ms = full_month(reader, dev)
+    cov_launches = cov.build_covariance_kernel.launches
+    curve_launches = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the main path ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(g is not None for g in grans), "an orbit missed the CONUS window")
+    check(cov_launches > 0, "the full-covariance month never launched the covariance kernel")
+    check(native.available(), "the regrid did not use the native swath builder")
+    diag = obj.oi_diagnostics
+    check(diag.get("solver") == "dense+direct_f64_dev",
+          f"the float64 exact tail did not run: {diag}")
+    check(diag["f64_resid"] <= DEVICE_EXACT_RESID_GATE, f"f64_resid {diag['f64_resid']}")
+    check(int(out.oi.reg_index) == -1, "the step ran its scalar OI on a full month")
+    xa, y, so = obj.ctm_averaged_vcd, obj.sat_averaged_vcd, obj.sat_averaged_error
+    both = np.isfinite(xa) & np.isfinite(y) & np.isfinite(so) & (so > 0)
+    post = obj.ctm_averaged_vcd_corrected
+    check(both.sum() > 0.9 * post.size, f"only {both.sum()} of {post.size} cells valid")
+    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI"):
+        check(np.isfinite(getattr(obj, name)[both]).all(),
+              f"{name} not finite where prior and observation are")
+    grid = regularization_grid()
+    reg_index = int(np.argmin(np.abs(grid - diag["reg"])))
+    ratio = 0.5 * xa[both] / so[both]
+    log(f"full month: {int(both.sum())} valid cells, sigma_b/sigma_o median "
+        f"{np.median(ratio):.1f}, max sigma_b / min sigma_o "
+        f"{np.max(0.5 * xa[both]) / np.min(so[both]):.1f}; covariance launches "
+        f"{cov_launches}, ak_curve launches {curve_launches}; solver {diag['solver']}, "
+        f"factor {diag['reg']:.1f} (index {reg_index}), f64_resid {diag['f64_resid']:.3e} "
+        f"(gate {DEVICE_EXACT_RESID_GATE:g})")
+    log(f"full month: innovation n={int(diag['n'])} OmB {diag['omb_mean']:+.4f}/"
+        f"{diag['omb_rms']:.4f} OmA {diag['oma_mean']:+.4f}/{diag['oma_rms']:.4f} "
+        f"chi2 {diag['chi2']:.4f}")
+    log(f"full month: regrid {regrid_s:.3f} s for {len(orbits)} orbits, "
+        f"analyze_month_fused {month_s:.3f} s (host clock); peak device memory "
+        f"{peak_gb:.2f} GB ({base_gb:.2f} GB of it held before the phase)")
+    log_stages("full month, first run (kernel engine)", stage_ms, month_s)
+
+    # the covariance kernel against its plain version on the month's own B
+    # inputs: the compaction oi_full runs on the fields the driver gives it
+    cp = compact(*obj.full_oi_inputs())
+    n = cp.idx.size
+    args = (cov.radians_f32(cp.lat, dev), cov.radians_f32(cp.lon, dev),
+            torch.as_tensor(cp.sb, dtype=torch.float32, device=dev))
+    cov_err = compare_cov(args, cp.sb, cov, f"full month n={n}")
+    k_ms = cuda_ms(lambda: cov.build_covariance_kernel(*args, LENGTH_SCALE_KM), reps=20)
+    p_ms = cuda_ms(lambda: cov.build_covariance_plain(*args, LENGTH_SCALE_KM), reps=5)
+    bms, by = covariance_bound(n)
+    log(f"full month covariance at n = {n} (CUDA events): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {bms:.4f} ms ({by}), max_abs_err {cov_err:.3e} "
+        f"(bitwise equal to plain)")
+
+    ref, _, ref_s, ref_ms = full_month(reader, dev, cov_impl="plain")
+    check(ref.oi_diagnostics["reg"] == diag["reg"],
+          f"full month factor kernel {diag['reg']} vs plain {ref.oi_diagnostics['reg']}")
+    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI",
+                 "sat_averaged_vcd", "ctm_averaged_vcd"):
+        np.testing.assert_allclose(getattr(obj, name), getattr(ref, name), rtol=FULL_RTOL,
+                                   atol=0, equal_nan=True, err_msg=name)
+    log(f"full month: the plain covariance engine gives the identical factor and "
+        f"fields (rtol {FULL_RTOL:g})")
+    log_stages("full month, plain engine (warm)", ref_ms, ref_s)
+    again, _, again_s, again_ms = full_month(reader, dev)
+    check(again.oi_diagnostics["reg"] == diag["reg"], "a second kernel-engine run "
+          f"picked factor {again.oi_diagnostics['reg']} instead of {diag['reg']}")
+    log_stages("full month, kernel engine again (warm)", again_ms, again_s)
+    return dict(launches=cov_launches, err=cov_err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bms, bound_by=by, cells=n)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    from oisat_tpu_torch import native
     from oisat_tpu_torch.driver import oisatgmi
     from oisat_tpu_torch.entry import synthetic_month
+    from oisat_tpu_torch.ops.kernels import covariance as cov
     from oisat_tpu_torch.ops.kernels import oi_scan
     from oisat_tpu_torch.ops.kernels._build import build_log, load_library
     from oisat_tpu_torch.ops.knee import kneedle_index_np
@@ -239,12 +471,29 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matrix products must not run in TF32")
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    load_library("ak_curve")
-    log(f"built ak_curve.cu for sm_90a in {time.perf_counter() - t0:.2f} s")
-    for line in build_log("ak_curve").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:  # one compiler per source
+        builds = {name: pool.submit(timed, load_library, name) for name in KERNELS}
+        swath = pool.submit(timed, native.available)
+        build_s = {name: f.result() for name, f in builds.items()}
+        swath_s = swath.result()
+    check(native.available(), "the C++ swath-weight library did not build")
+    log(f"built {', '.join(f'{n}.cu in {s:.2f} s' for n, s in build_s.items())} for "
+        f"sm_90a and swath_weights.cpp in {swath_s:.2f} s, all at once in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        for line in build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     regs_np = regularization_grid()
     kres = phase_kernel(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np)
@@ -344,15 +593,24 @@ def main() -> int:
         f"{amf_ms:.2f} ms, averaging + OI + diagnostics {step_ms - amf_ms:.2f} ms")
     log(f"ak_curve at the month's shape ({u.numel()} cells x {regs.numel()} factors, "
         f"{u.dtype}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, max_abs_err {month_err:.3e}")
-    for key, (err, ms, pms) in kres.items():
+    for key, (err, ms, pms, _) in kres.items():
         log(f"ak_curve at {HEADLINE[0] * HEADLINE[1]} cells {key}: kernel {ms:.4f} ms, "
             f"plain {pms:.4f} ms, max_abs_err {err:.3e}")
     log(f"oi() {HEADLINE[0]}x{HEADLINE[1]} float32: kernel engine {oi_ms:.4f} ms, "
         f"plain engine {oi_plain_ms:.4f} ms; regrid {regrid_steady:.4f} s/orbit; "
         f"analyze_month_fused {month_s:.3f} s")
 
-    log(f"nvidia-smi: {smi_line()}")
-    print(json.dumps({"kernels": [{
+    curve_bound, curve_by = ak_curve_bound(int(valid.sum()), u.numel(), regs.numel(),
+                                           u.dtype)
+    log(f"ak_curve bound at the month's shape: {curve_bound:.4f} ms ({curve_by}); "
+        f"kernel at {curve_bound / k_ms:.1%} of it")
+    for key, (err, ms, pms, count) in kres.items():
+        dt = torch.float32 if "float32" in key else torch.float64
+        b, by = ak_curve_bound(count, HEADLINE[0] * HEADLINE[1], regs.numel(), dt)
+        log(f"ak_curve bound at {HEADLINE[0] * HEADLINE[1]} cells {key} ({count} valid): "
+            f"{b:.4f} ms ({by}); kernel at {b / ms:.1%} of it")
+
+    curve_entry = {
         "name": "ak_curve",
         "route": "cuda",
         "source": "oisat_tpu_torch/csrc/ak_curve.cu",
@@ -361,9 +619,37 @@ def main() -> int:
         "max_abs_err": month_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": curve_bound,
+        "bound_by": curve_by,
+        "library_ms": None,  # no single PyTorch call computes the curve sums
         "cells": u.numel(),
         "factors": regs.numel(),
         "dtype": str(u.dtype).replace("torch.", ""),
+    }
+    # the global month's tensors (~20 GB) are not needed again
+    del inputs, step, xa, u, valid, grans, obj, ref
+    torch.cuda.empty_cache()
+    cov_times = phase_covariance(dev, cov)
+    full = phase_full_month(dev, cov, oi_scan, native)
+    for n, (ms, pms, bms, by) in cov_times.items():
+        log(f"covariance at n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+
+    log(f"nvidia-smi: {smi_line()}")
+    print(json.dumps({"kernels": [curve_entry, {
+        "name": "covariance",
+        "route": "cuda",
+        "source": "oisat_tpu_torch/csrc/covariance.cu",
+        "replaces": "oisat_tpu/ops/kernels/covariance.py:32",
+        "launches": full["launches"],
+        "max_abs_err": full["err"],
+        "ms": full["ms"],
+        "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"],
+        "library_ms": None,  # no single PyTorch call builds B
+        "cells": full["cells"],
+        "dtype": "float32",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,18 +4,21 @@ The same satellite<->model optimal-interpolation analysis as the JAX package
 beside it (``oisat_tpu``), written for one NVIDIA Hopper GPU.  The modules
 mirror the JAX layout so each counterpart is easy to find:
 
-  host:   QA mask -> sparse interpolation plan  (reused from
-          ``oisat_tpu.ops.weights`` / ``oisat_tpu.native``: numpy, scipy, C++)
+  host:   QA mask -> sparse interpolation plan  (ops.weights / native: the
+          port's own copies of the JAX package's numpy, scipy and C++ code)
   device: regridder.regrid_granule      (ops.regrid gather + box filter)
           parallel.analysis.full_month_step
               = ops.vertical.amf_recal_fields -> ops.averaging.monthly_stats
                 -> bias -> ops.oi.oi (curve: CUDA kernel ops.kernels.oi_scan)
                 -> ops.diagnostics.innovation_stats
   host:   driver.oisatgmi.analyze_month_fused (one device->host pull)
+  full:   oi_method="full" -> ops.oi_full.oi_full (covariance: CUDA kernel
+          ops.kernels.covariance; eigh scan + exact float64 tail on the card)
 
-The package imports torch, numpy and scipy, never jax.  Tensors are created
-on the device the caller names; a CUDA tensor always goes through the
-hand-written kernel, a CPU tensor through its plain PyTorch version.
+The package imports torch, numpy and scipy, and nothing of jax or of
+``oisat_tpu``.  Tensors are created on the device the caller names; a CUDA
+tensor always goes through the hand-written kernel, a CPU tensor through its
+plain PyTorch version.
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,10 @@
   tracks spread over the globe, and a 72-level CTM as a 3-hourly mean
   diurnal cycle.  Host
   numpy only; ``chip_smoke.py`` regrids and analyses it.
+* :func:`synthetic_regional_month` builds the same kind of month on the
+  CONUS window of that grid (:func:`conus_window`, 5,643 cells) in
+  physical units, with observation errors in the production regime of the
+  full-covariance OI (``oi_method="full"``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from oisat_tpu_torch.datamodel import ctm_model, satellite_amf
 from oisat_tpu_torch.parallel.analysis import FullMonthInputs, full_month_step
 
 __all__ = ["entry", "synthetic_full_month", "merra2_gmi_grid", "synthetic_orbit",
-           "synthetic_ctm", "synthetic_month"]
+           "synthetic_ctm", "synthetic_month", "conus_window", "synthetic_regional_month"]
+
+# the CONUS analysis window: 24-52 N x 128-66 W
+CONUS = (24.0, 52.0, -128.0, -66.0)
 
 
 def synthetic_full_month(device, G=4, Ls=6, Lc=12, H=16, W=24, seed=0):
@@ -47,9 +54,10 @@ def synthetic_full_month(device, G=4, Ls=6, Lc=12, H=16, W=24, seed=0):
     return full_month_inputs(host, device)
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """(fn, example_args): a full month of OI data assimilation (AMF recal ->
-    monthly stats -> bias -> OI) on ``device``."""
+    monthly stats -> bias -> OI) on ``device`` (the card unless the caller
+    asks for ``"cpu"``)."""
     return full_month_step, (synthetic_full_month(device),)
 
 
@@ -62,13 +70,15 @@ def merra2_gmi_grid():
 
 
 def synthetic_orbit(seed, center_lon, ny=1644, nx=60, nz=35, day=1,
-                    lat_range=(-82.0, 82.0), width_deg=24.0):
+                    lat_range=(-82.0, 82.0), width_deg=24.0, error_mean=0.5):
     """One OMI-NO2-shaped L2 orbit (numpy leaves): ``ny`` scanlines pole to
     pole, ``nx`` cross-track pixels ~``width_deg`` wide around
     ``center_lon`` (drifting +-4 deg along track), ``nz`` hybrid-eta
     scattering-weight levels (A + B * psurf, level 0 at the surface), a QA
     channel with 1% bad pixels and a tropopause.  The time is the 13:30
-    local overpass of ``day`` July 2019 in UTC at ``center_lon``."""
+    local overpass of ``day`` July 2019 in UTC at ``center_lon``.  VCDs are
+    ~2 (x 1e15 molec/cm2, the unit of :func:`synthetic_ctm`'s columns), the
+    pixel uncertainty ``error_mean`` +- 20%."""
     rng = np.random.default_rng(seed)
     along = np.linspace(lat_range[0], lat_range[1], ny)[:, None]
     across = np.linspace(-width_deg / 2, width_deg / 2, nx)[None, :]
@@ -89,7 +99,7 @@ def synthetic_orbit(seed, center_lon, ny=1644, nx=60, nz=35, day=1,
         tropopause=rng.uniform(100.0, 250.0, (ny, nx)),
         latitude_center=lat, longitude_center=lon,
         latitude_corner=[], longitude_corner=[],
-        uncertainty=np.abs(rng.normal(0.5, 0.1, (ny, nx))),
+        uncertainty=np.abs(rng.normal(error_mean, 0.2 * error_mean, (ny, nx))),
         quality_flag=qa,
         pressure_mid=eta_a[:, None, None] + eta_b[:, None, None] * psurf[None],
         scattering_weights=np.abs(rng.normal(1.0, 0.2, (nz, ny, nx))),
@@ -127,3 +137,42 @@ def synthetic_month(n_orbits=60, seed=0):
     orbits = [synthetic_orbit(seed + 1 + i, c, day=1 + i % 28)
               for i, c in enumerate(centers)]
     return orbits, synthetic_ctm(lon2d, lat2d, seed=seed), lon2d, lat2d
+
+
+def conus_window():
+    """(lon2d, lat2d): the rows and columns of :func:`merra2_gmi_grid` in
+    ``CONUS`` (24-52 N x 128-66 W), 57 x 99 = 5,643 cells -- under the
+    full-covariance scan's 6,144-cell dense limit and close to it."""
+    lon2d, lat2d = merra2_gmi_grid()
+    lat_s, lat_n, lon_w, lon_e = CONUS
+    rows = (lat2d[:, 0] >= lat_s) & (lat2d[:, 0] <= lat_n)
+    cols = (lon2d[0] >= lon_w) & (lon2d[0] <= lon_e)
+    return lon2d[np.ix_(rows, cols)], lat2d[np.ix_(rows, cols)]
+
+
+# pixel uncertainty of the regional month (x 1e15 molec/cm2): after the
+# regrid and the monthly average of 60 orbits it puts sigma_b / sigma_o =
+# 0.5 xa / sigma_o near 100 on the median cell and max sigma_b / min sigma_o
+# near 200 (chip_smoke.py prints both), the tight regime of monthly
+# averages in which the full OI's float64 exact tail runs
+# ((max sigma_b sqrt(r) / min sigma_o)^2 > 1e4 for the factors r the knee
+# picks here); production months reach 150-300, where the float32 scan's
+# knee is rounding noise (ROADMAP queue 3), so the month stays below them
+REGIONAL_ERROR_MEAN = 0.1
+
+
+def synthetic_regional_month(n_orbits=60, seed=0, ny=1644, nx=60, nz=35, nz_ctm=72,
+                             error_mean=REGIONAL_ERROR_MEAN):
+    """(orbits, ctm, ctm_lon2d, ctm_lat2d) on the host for the CONUS window:
+    ``n_orbits`` OMI-shaped orbits (``ny`` x ``nx`` pixels pole to pole,
+    ``nz`` levels) whose tracks cross the window, spread over its
+    longitudes and over days 1-28 of July 2019, with the pixel uncertainty
+    ``error_mean``, and the ``nz_ctm``-level, 8-snapshot CTM on the
+    window."""
+    lon2d, lat2d = conus_window()
+    lon_w, lon_e = float(lon2d.min()), float(lon2d.max())
+    centers = np.linspace(lon_w + 4.0, lon_e - 4.0, n_orbits)
+    orbits = [synthetic_orbit(seed + 1 + i, c, ny=ny, nx=nx, nz=nz, day=1 + i % 28,
+                              error_mean=error_mean)
+              for i, c in enumerate(centers)]
+    return orbits, synthetic_ctm(lon2d, lat2d, seed=seed, nz=nz_ctm), lon2d, lat2d

@@ -25,7 +25,8 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts below
+_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -61,8 +62,11 @@ def _build(src: Path, lib: Path) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if missing
-    or older than its source."""
+    or older than its source.  Different libraries build concurrently when
+    called from several threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         hit = _loaded.get(name)
         if hit is not None:
             return hit
@@ -71,7 +75,8 @@ def load_library(name: str) -> ctypes.CDLL:
         if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
             _build(src, lib)
         handle = ctypes.CDLL(str(lib))
-        _loaded[name] = handle
+        with _lock:
+            _loaded[name] = handle
         return handle
 
 

@@ -16,7 +16,7 @@ import torch
 
 from oisat_tpu_torch.ops.averaging import monthly_stats, monthly_stats_weighted
 from oisat_tpu_torch.ops.diagnostics import InnovationStats, innovation_stats
-from oisat_tpu_torch.ops.oi import OIResult, oi
+from oisat_tpu_torch.ops.oi import OIResult, oi, regularization_grid
 from oisat_tpu_torch.ops.vertical import amf_recal_fields
 
 __all__ = ["AnalysisInputs", "AnalysisOutputs", "FullMonthInputs",
@@ -88,12 +88,18 @@ def _granule_weights_traced(weighting, uncertainty):
 def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
                   bias_slope: float = 1.0, error_ctm: float = 50.0,
                   ctm_scale: float = 1.0, weights=None,
-                  curve_impl: str = "auto") -> AnalysisOutputs:
+                  curve_impl: str = "auto", run_oi: bool = True) -> AnalysisOutputs:
     """Monthly average + bias correction + OI update + innovation stats.
 
     ``ctm_scale`` rescales the averaged CTM column before the OI (the O3
     DU conversion); ``weights`` (G, H, W) selects the weighted temporal
-    statistics; ``curve_impl`` is passed to :func:`~oisat_tpu_torch.ops.oi.oi`."""
+    statistics; ``curve_impl`` is passed to :func:`~oisat_tpu_torch.ops.oi.oi`.
+
+    ``run_oi=False`` skips the OI stage for callers that run their own OI
+    afterwards (``oi_method="full"``): the ``oi`` slot carries NaN fields
+    with ``reg_index`` -1 and ``reg_factor`` NaN, the innovation statistics
+    are NaN with n = 0 and the scaling factor is all ones, as in
+    :func:`oisat_tpu.parallel.analysis.analysis_step`."""
     if weights is None:
         stats = monthly_stats(inputs.vcd, inputs.uncertainty, inputs.ctm_vcd,
                               inputs.aux1, inputs.aux2)
@@ -106,13 +112,25 @@ def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
     xa, y = ctm_vcd, sat_vcd
     sa = (xa * error_ctm / 100.0) ** 2
     so = stats.sat_error**2
-    res = oi(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
-    sf = res.xb / xa
-    sf = torch.where(torch.isnan(sf) | torch.isinf(sf) | (sf == 0.0),
-                     torch.ones_like(sf), sf)
-    # diagnostics on the y the OI actually assimilated (its y<0 -> 0 clamp)
-    y_assim = torch.where(y < 0, torch.zeros_like(y), y)
-    innov = innovation_stats(xa, y_assim, res.xb, sa, so)
+    if run_oi:
+        res = oi(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
+        sf = res.xb / xa
+        sf = torch.where(torch.isnan(sf) | torch.isinf(sf) | (sf == 0.0),
+                         torch.ones_like(sf), sf)
+        # diagnostics on the y the OI actually assimilated (its y<0 -> 0 clamp)
+        y_assim = torch.where(y < 0, torch.zeros_like(y), y)
+        innov = innovation_stats(xa, y_assim, res.xb, sa, so)
+    else:
+        nanf = torch.full_like(xa, math.nan)
+        z = torch.tensor(math.nan, dtype=xa.dtype, device=xa.device)
+        res = OIResult(xb=nanf, averaging_kernel=nanf, increment=nanf, error=nanf,
+                       reg_index=torch.tensor(-1, dtype=torch.int32, device=xa.device),
+                       reg_factor=z,
+                       curve=torch.full(regularization_grid().shape, math.nan,
+                                        dtype=xa.dtype, device=xa.device))
+        sf = torch.ones_like(xa)
+        innov = InnovationStats(n=torch.tensor(0, device=xa.device), omb_mean=z,
+                                omb_rms=z, oma_mean=z, oma_rms=z, chi2=z)
     return AnalysisOutputs(sat_vcd=sat_vcd, sat_error=stats.sat_error,
                            ctm_vcd=ctm_vcd, aux1=stats.aux1, aux2=stats.aux2,
                            oi=res, scaling_factor=sf, innovation=innov)
@@ -137,13 +155,14 @@ def _amf_recal_month(inputs: FullMonthInputs):
 def full_month_step(inputs: FullMonthInputs, bias_offset: float = 0.0,
                     bias_slope: float = 1.0, error_ctm: float = 50.0,
                     ctm_scale: float = 1.0, weighting=None,
-                    curve_impl: str = "auto") -> AnalysisOutputs:
+                    curve_impl: str = "auto", run_oi: bool = True) -> AnalysisOutputs:
     """AMF recalculation per granule + monthly statistics + bias correction
     + OI for a whole month (:func:`oisat_tpu.parallel.analysis.full_month_step`).
 
     ``weighting`` ("inverse_variance" or None) enables the weighted
-    temporal mean.  Granules without a tropopause pass zeros, which never
-    mask a level (pmid < 0 never holds)."""
+    temporal mean; ``run_oi`` as in :func:`analysis_step`.  Granules without
+    a tropopause pass zeros, which never mask a level (pmid < 0 never
+    holds)."""
     new_amf, vcd_corr, model_vcd = _amf_recal_month(inputs)
     ai = AnalysisInputs(vcd=vcd_corr, uncertainty=inputs.uncertainty,
                         ctm_vcd=model_vcd, aux1=new_amf, aux2=inputs.amf)
@@ -151,4 +170,4 @@ def full_month_step(inputs: FullMonthInputs, bias_offset: float = 0.0,
                          error_ctm=error_ctm, ctm_scale=ctm_scale,
                          weights=_granule_weights_traced(weighting,
                                                          inputs.uncertainty),
-                         curve_impl=curve_impl)
+                         curve_impl=curve_impl, run_oi=run_oi)

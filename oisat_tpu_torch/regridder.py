@@ -4,8 +4,9 @@ Counterpart of :mod:`oisat_tpu.regridder` for ``satellite_amf`` granules
 (reference oisatgmi/interpolator.py:100-291):
 
   host   build the SparsePlan pixels -> fine grid for the granule's geometry
-         and the Upscaler fine grid -> CTM grid (``oisat_tpu.ops.weights``,
-         ``oisat_tpu.native``: numpy/scipy/C++, no jax);
+         and the Upscaler fine grid -> CTM grid (the port's copies
+         :mod:`oisat_tpu_torch.ops.weights` and :mod:`oisat_tpu_torch.native`:
+         numpy/scipy/C++);
   device stack every 2-D field and every level of every 3-D field into one
          (F, Npix) batch -> gather + weighted sum -> box filter -> nearest
          map onto the CTM grid, and the uncertainty through the same path
@@ -25,7 +26,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from oisat_tpu.ops.weights import (
+from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch.convert import plan_to_torch
+from oisat_tpu_torch.datamodel import satellite_amf
+from oisat_tpu_torch.ops.regrid import apply_plan_arrays, boxfilter_same_symm
+from oisat_tpu_torch.ops.weights import (
     SparsePlan,
     build_plan,
     build_plan_structured,
@@ -33,11 +38,7 @@ from oisat_tpu.ops.weights import (
     fine_grid,
     grid_spacing,
 )
-from oisat_tpu.utils.lru import LockedLRU
-from oisat_tpu_torch._device import resolve_device
-from oisat_tpu_torch.convert import plan_to_torch
-from oisat_tpu_torch.datamodel import satellite_amf
-from oisat_tpu_torch.ops.regrid import apply_plan_arrays, boxfilter_same_symm
+from oisat_tpu_torch.utils.lru import LockedLRU
 
 __all__ = ["Upscaler", "make_upscaler", "regrid_granule"]
 

@@ -70,3 +70,30 @@ def test_build_targets_sm90a_keeps_log_and_rebuilds_newer_source(fake_toolchain,
     monkeypatch.setattr(_build, "_loaded", {})
     _build.load_library("k")
     assert len((fake_toolchain / "args.txt").read_text().splitlines()) == 2
+
+
+def test_concurrent_loads_build_each_library_once(fake_toolchain):
+    """chip_smoke.py builds every kernel at once from several threads: each
+    library is built exactly once and every caller gets the loaded one."""
+    import sys
+    import threading
+
+    (fake_toolchain / "csrc" / "k2.cu").write_text("// kernel 2\n")
+    got = []
+    threads = [threading.Thread(target=lambda n=name: got.append((n, _build.load_library(n))))
+               for name in ("k", "k2") * 12]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    args = (fake_toolchain / "args.txt").read_text().splitlines()
+    assert sorted(a.split()[-1].rsplit("/", 1)[-1] for a in args) == ["k.cu", "k2.cu"]
+    assert len(got) == 24
+    for name, handle in got:
+        assert handle == ("loaded", str(fake_toolchain / "build" / f"lib{name}.so"))

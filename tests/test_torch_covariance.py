@@ -1,0 +1,167 @@
+"""The port's covariance builder (oisat_tpu_torch.ops.kernels.covariance)
+against the JAX package's Pallas kernel (interpret mode on the CPU) and its
+NumPy float64 golden, and the CUDA kernel against the plain version on the
+card (``gpu``-marked tests, which skip without a CUDA device; run them on a
+GPU host with ``python -m pytest --noconftest tests/test_torch_covariance.py
+-q -m gpu``).
+
+Tolerances: rtol 2e-4 / atol 1e-6 * max sigma^2 against the JAX kernel and
+the golden -- the JAX test's own bounds (tests/test_oi_full.py:19), which
+cover float32 sin/exp.  On the card the kernel and the plain version round
+operation by operation alike, so they are bitwise equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from oisat_tpu_torch.ops.kernels import covariance as cov
+
+torch.set_num_threads(1)
+
+RTOL = 2e-4
+
+
+def _coords(n, seed=0):
+    rng = np.random.default_rng(seed)
+    lat = rng.uniform(20, 60, n)
+    lon = rng.uniform(-130, -60, n)
+    sig = np.abs(rng.normal(1.5, 0.3, n))
+    return lat, lon, sig
+
+
+def _assert_close(got, want, sig):
+    atol = 1e-6 * max(float(np.max(np.asarray(sig) ** 2)), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+
+
+def test_plain_matches_jax_pallas_kernel_and_golden():
+    import jax.numpy as jnp
+
+    from oisat_tpu.ops.kernels.covariance import build_covariance as jax_build
+    from oisat_tpu.ops.kernels.covariance import build_covariance_reference
+
+    lat, lon, sig = _coords(256)
+    got = cov.build_covariance(lat, lon, sig, 300.0, device="cpu").numpy()
+    want = np.asarray(jax_build(jnp.asarray(lat), jnp.asarray(lon), jnp.asarray(sig),
+                                300.0, tile=128))
+    ref = build_covariance_reference(lat, lon, sig, 300.0)
+    assert got.dtype == np.float32 and got.shape == (256, 256)
+    _assert_close(got, want, sig)
+    _assert_close(got, ref, sig)
+    np.testing.assert_array_equal(cov.build_covariance_reference(lat, lon, sig, 300.0), ref)
+    # symmetric with sigma^2 on the diagonal
+    np.testing.assert_allclose(got, got.T, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.diag(got), sig ** 2, rtol=2e-6)
+
+
+@pytest.mark.parametrize("n", [1, 131, 300])
+def test_plain_takes_any_n(n):
+    """No N % tile requirement: N = 1 and N off the 128-lane tile agree with
+    the golden and with the JAX kernel run on sigma = 0 padding."""
+    import jax.numpy as jnp
+
+    from oisat_tpu.ops.kernels.covariance import build_covariance as jax_build
+
+    lat, lon, sig = _coords(n, seed=n)
+    got = cov.build_covariance(lat, lon, sig, 250.0, device="cpu").numpy()
+    assert got.shape == (n, n)
+    _assert_close(got, cov.build_covariance_reference(lat, lon, sig, 250.0), sig)
+    npad = -(-n // 128) * 128
+    pad = npad - n
+    padded = jax_build(jnp.asarray(np.concatenate([lat, np.zeros(pad)])),
+                       jnp.asarray(np.concatenate([lon, np.zeros(pad)])),
+                       jnp.asarray(np.concatenate([sig, np.zeros(pad)])), 250.0, tile=128)
+    _assert_close(got, np.asarray(padded)[:n, :n], sig)
+
+
+def test_all_zero_sigma_gives_zero_matrix():
+    lat, lon, _ = _coords(77, seed=4)
+    got = cov.build_covariance(lat, lon, np.zeros(77), 300.0, device="cpu")
+    assert torch.equal(got, torch.zeros(77, 77))
+
+
+def test_radians_follow_the_jax_rounding():
+    """Degrees are cast to float32 first, then scaled by float32(pi/180), as
+    ``jnp.deg2rad(jnp.asarray(deg, jnp.float32))`` does."""
+    import jax.numpy as jnp
+
+    deg = np.random.default_rng(3).uniform(-180, 180, 1000)
+    got = cov.radians_f32(deg, "cpu").numpy()
+    want = np.asarray(jnp.deg2rad(jnp.asarray(deg, jnp.float32)))
+    np.testing.assert_array_equal(got, want)
+    assert torch.equal(cov.radians_f32(torch.as_tensor(deg), "cpu"), torch.as_tensor(got))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    lat, lon, sig = _coords(40, seed=5)
+    before = cov.build_covariance_kernel.launches
+    a = cov.build_covariance(lat, lon, sig, 300.0, device="cpu")
+    b = cov.build_covariance(lat, lon, sig, 300.0, device="cpu", impl="plain")
+    assert torch.equal(a, b)
+    assert cov.build_covariance_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        cov.build_covariance(lat, lon, sig, 300.0, device="cpu", impl="kernel")
+    with pytest.raises(ValueError, match="impl"):
+        cov.build_covariance(lat, lon, sig, 300.0, device="cpu", impl="pallas")
+
+
+# -- the CUDA kernel against the plain version, on the card ------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _both(lat, lon, sig, length_scale_km, device):
+    k = cov.build_covariance(lat, lon, sig, length_scale_km, device=device, impl="kernel")
+    p = cov.build_covariance(lat, lon, sig, length_scale_km, device=device, impl="plain")
+    torch.cuda.synchronize()
+    return k.cpu().numpy(), p.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 6144])
+def test_kernel_matches_plain(cuda, n):
+    lat, lon, sig = _coords(n, seed=n)
+    k, p = _both(lat, lon, sig, 300.0, cuda)
+    _assert_close(k, p, sig)
+    _assert_close(k, cov.build_covariance_reference(lat, lon, sig, 300.0), sig)
+
+
+@pytest.mark.gpu
+def test_kernel_is_bitwise_equal_to_plain(cuda):
+    """The kernel rounds operation by operation as the plain version does
+    on the card, so the full OI's knee cannot move between the two."""
+    lat, lon, sig = _coords(1000, seed=11)
+    k, p = _both(lat, lon, sig, 300.0, cuda)
+    assert np.array_equal(k, p)
+
+
+@pytest.mark.gpu
+def test_kernel_all_zero_sigma_and_repeatable(cuda):
+    lat, lon, sig = _coords(2049, seed=7)
+    k, _ = _both(lat, lon, np.zeros(2049), 300.0, cuda)
+    assert not k.any()
+    a, _ = _both(lat, lon, sig, 300.0, cuda)
+    b, _ = _both(lat, lon, sig, 300.0, cuda)
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kernel_counts_launches_and_rejects_bad_input(cuda):
+    lat = torch.rand(64, device=cuda)
+    before = cov.build_covariance_kernel.launches
+    cov.build_covariance_kernel(lat, lat, lat, 300.0)
+    assert cov.build_covariance_kernel.launches == before + 1
+    with pytest.raises(TypeError):
+        cov.build_covariance_kernel(lat.double(), lat.double(), lat.double(), 300.0)
+    with pytest.raises(ValueError):
+        cov.build_covariance_kernel(lat[::2], lat[::2], lat[::2], 300.0)
+    with pytest.raises(ValueError):
+        cov.build_covariance_kernel(lat, lat[:10], lat, 300.0)
+    with pytest.raises(ValueError):
+        cov.build_covariance_kernel(lat, lat, lat.cpu(), 300.0)
+    assert cov.build_covariance_kernel.launches == before + 1

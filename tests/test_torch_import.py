@@ -1,9 +1,16 @@
-"""The port runs where jax, h5py, yaml and matplotlib are absent: every slice
-module (and chip_smoke.py) imports with those blocked in ``sys.modules``."""
+"""The port runs where jax, h5py, yaml and matplotlib are absent, and it
+imports nothing of the JAX package: every slice module (and chip_smoke.py)
+imports with those and ``oisat_tpu`` blocked in ``sys.modules``, and a CPU
+regrid through the port's native plan builder (whose import is lazy) runs
+so blocked.  The port's copies of the JAX package's host plan builders
+give the JAX package's plans."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -14,6 +21,13 @@ SLICE_MODULES = [
     "oisat_tpu_torch.ops.kernels",
     "oisat_tpu_torch.ops.kernels._build",
     "oisat_tpu_torch.ops.kernels.oi_scan",
+    "oisat_tpu_torch.ops.kernels.covariance",
+    "oisat_tpu_torch.ops.weights",
+    "oisat_tpu_torch.ops.oi_full",
+    "oisat_tpu_torch.native",
+    "oisat_tpu_torch.utils",
+    "oisat_tpu_torch.utils.lru",
+    "oisat_tpu_torch.utils.stages",
     "oisat_tpu_torch.ops.knee",
     "oisat_tpu_torch.ops.oi",
     "oisat_tpu_torch.ops.averaging",
@@ -30,7 +44,20 @@ SLICE_MODULES = [
     "chip_smoke",
 ]
 
-_BLOCKED = ("jax", "jaxlib", "h5py", "yaml", "matplotlib")
+_BLOCKED = ("jax", "jaxlib", "h5py", "yaml", "matplotlib", "oisat_tpu")
+
+# one tiny OMI-shaped orbit regridded on the CPU through the native builder
+_REGRID = """
+import numpy as np
+from oisat_tpu_torch import native
+from oisat_tpu_torch.entry import synthetic_orbit
+from oisat_tpu_torch.regridder import regrid_granule
+lon2d, lat2d = np.meshgrid(np.arange(-20.0, 20.0, 0.625), np.arange(-10.0, 10.25, 0.5))
+orbit = synthetic_orbit(1, 0.0, ny=200, nx=20, nz=4, lat_range=(-12.0, 12.0), width_deg=10.0)
+g = regrid_granule(1, 0.25, orbit, lon2d, lat2d, "cpu", flag_thresh=0.5)
+assert native.available()
+assert g is not None and int(g.vcd.isfinite().sum()) > 50
+"""
 
 
 def test_slice_imports_without_jax_h5py_yaml_matplotlib():
@@ -42,7 +69,9 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         "    importlib.import_module(name)",
         "import oisat_tpu_torch",
         "oisat_tpu_torch.oisatgmi",
+        _REGRID,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
+        "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",
         "print('ok')",
     ])
@@ -50,3 +79,47 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_no_module_of_the_port_imports_the_jax_package():
+    """No import statement of oisat_tpu in the port or chip_smoke.py."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import) oisat_tpu(\.|\s|$)")
+    files = sorted((REPO / "oisat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("method", [1, 2, 4])
+def test_copied_plan_builders_give_the_jax_plans(fast, method):
+    """oisat_tpu_torch.ops.weights (and its native builder) against
+    oisat_tpu.ops.weights (and oisat_tpu.native): identical plans for the
+    scipy and the native builder."""
+    from oisat_tpu.ops import weights as jw
+    from oisat_tpu_torch.ops import weights as tw
+
+    rng = np.random.default_rng(method)
+    ny, nx = 40, 25
+    lat = np.linspace(30.5, 45.2, ny)[:, None] * np.ones((ny, nx)) + 0.01 * rng.random((ny, nx))
+    lon = np.ones((ny, 1)) * np.linspace(-9.8, 9.9, nx)[None, :] + 0.01 * rng.random((ny, nx))
+    tlon, tlat = np.meshgrid(np.arange(-10, 10, 0.25), np.arange(30, 46, 0.25))
+    if fast:
+        got = tw.build_plan_structured(lon, lat, tlon, tlat, method=method, threshold=0.5)
+        want = jw.build_plan_structured(lon, lat, tlon, tlat, method=method, threshold=0.5)
+        assert got is not None and want is not None
+    else:
+        got = tw.build_plan(lon, lat, tlon, tlat, method=method, threshold=0.5)
+        want = jw.build_plan(lon, lat, tlon, tlat, method=method, threshold=0.5)
+    import dataclasses
+
+    assert type(got).__name__ == type(want).__name__ == "SparsePlan"
+    for field in dataclasses.fields(want):
+        name = field.name
+        a, b = getattr(got, name), getattr(want, name)
+        if isinstance(b, np.ndarray):
+            assert np.array_equal(a, b, equal_nan=True), name
+        else:
+            assert a == b, name

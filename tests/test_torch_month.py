@@ -108,6 +108,34 @@ def test_analysis_step_matches_jax(weighted, dt):
         assert_parity(g, wv, dt, path)
 
 
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_analysis_step_without_oi_matches_jax(dt):
+    """run_oi=False (the oi_method="full" month): the averaged fields as
+    with the OI, NaN OI placeholders, reg_index -1, n = 0, scaling 1."""
+    fields = _stack(3, G=6, H=12, W=14, dt=dt)
+    fields[2] = np.abs(fields[2])
+    kw = dict(bias_offset=0.32, bias_slope=0.63, run_oi=False)
+    got = tan.analysis_step(convert.analysis_inputs(jan.AnalysisInputs(*fields), "cpu"), **kw)
+    want = jan.analysis_step(jan.AnalysisInputs(*(jnp.asarray(f) for f in fields)), **kw)
+    assert int(got.oi.reg_index) == int(want.oi.reg_index) == -1
+    assert int(got.innovation.n) == int(want.innovation.n) == 0
+    got_leaves, want_leaves = list(_leaves(convert.to_numpy(got))), list(_leaves(want))
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        assert_parity(g, w, dt, path)
+    assert torch.equal(got.scaling_factor, torch.ones_like(got.scaling_factor))
+
+
+def test_full_month_step_without_oi_keeps_the_averaged_fields():
+    inputs = entry.synthetic_full_month("cpu")
+    with_oi = tan.full_month_step(inputs)
+    without = tan.full_month_step(inputs, run_oi=False)
+    for name in ("sat_vcd", "sat_error", "ctm_vcd", "aux1", "aux2"):
+        a, b = getattr(with_oi, name), getattr(without, name)
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), name
+    assert torch.isnan(without.oi.xb).all() and int(without.oi.reg_index) == -1
+
+
 def _month_pair(weighting, dt):
     """(port, jax) full_month_step outputs on __graft_entry__'s month in ``dt``."""
     host = [np.asarray(x, dt) for x in graft._synthetic_full_month()]
