@@ -15,10 +15,13 @@ Phases (any failure raises, exit code != 0):
    time and ptxas's register report of each kernel.
 2. Kernel vs plain: the mean-AK curve sums at 4,147,200 cells (the global
    0.125 deg grid, 1440 x 2880) x 99 factors in float32 and float64, and the
-   edge cases N=1, N off the tile size, all-invalid (NaN curve), R=1.
-   Curves agree to rtol 1e-5 (float32) / 1e-12 (float64) -- the kernel sums
-   in double in a fixed order, the plain version in torch's order -- and the
-   knee index is identical; two kernel runs are bitwise equal.
+   edge cases N=1, N off the tile size, all-invalid (NaN curve), R = 1, 5,
+   127, 128.  Curves agree to rtol 1e-5 (float32) / 1e-12 (float64) -- the
+   kernel sums in double in a fixed order, the plain version in torch's
+   order -- and the knee index is identical; two kernel runs are bitwise
+   equal.  Beside each time: the bound and the division floor (one MUFU
+   reciprocal per valid term at 16 per SM per clock, at the card's maximum
+   SM clock).
 3. ``oi()`` at 1440 x 2880 float32 with the kernel engine vs the plain one:
    identical ``reg_index``, fields within rtol 1e-5; and ``oi()`` on a small
    float64 input against a literal numpy transcription of the reference
@@ -36,10 +39,11 @@ Phases (any failure raises, exit code != 0):
    driver's month, its host assembly).
 6. The covariance kernel vs plain: B at n = 6,144 (the scan branch's
    largest) and 10,240 (the dense branch's largest) float32, and N = 1,
-   a ragged N and all sigma = 0, within rtol 2e-4 / atol 1e-6 max sigma^2
-   (the CPU tests' bounds) and bitwise equal (the float32 scan's knee moves
-   with any ulp of B); two kernel runs are bitwise equal; times with CUDA
-   events beside the bound.
+   ragged N around the 64-cell tile and all sigma = 0, within rtol 2e-4 /
+   atol 1e-6 max sigma^2 (the CPU tests' bounds) and bitwise equal (the
+   float32 scan's knee moves with any ulp of B); the plain B bitwise
+   symmetric (the kernel computes one triangle and mirrors it); two kernel
+   runs are bitwise equal; times with CUDA events beside the bound.
 7. The full-covariance month (``oi_method="full"``, L = 300 km): 60
    OMI-shaped orbits crossing the CONUS window of the MERRA2-GMI grid
    (57 x 99 = 5,643 cells, ``entry.synthetic_regional_month``), a 72-level
@@ -48,11 +52,11 @@ Phases (any failure raises, exit code != 0):
    and the float64 exact tail on the card.  Checks: covariance launches
    > 0, solver "dense+direct_f64_dev", the sampled float64 residual under
    the gate, the native builder in use, a finite posterior wherever prior
-   and observation are, the kernel bitwise equal to the plain version on
-   the month's own compacted cells, and the same month with the plain
-   covariance engine giving the identical factor and fields within rtol
-   1e-9 (the tail never reads B; the factor holds only while B is bitwise
-   equal).  The driver's and ``oi_full``'s own stage times
+   and observation are, the kernel bitwise equal to the plain version and
+   the plain B bitwise symmetric on the month's own compacted cells, and
+   the same month with the plain covariance engine giving the identical
+   factor and fields within rtol 1e-9 (the tail never reads B; the factor
+   holds only while B is bitwise equal).  The driver's and ``oi_full``'s own stage times
    (``stage_ms``: assembly, step, pull, compaction, covariance, eigh, the
    scan's GEMMs, knee, tail, residual, ...) for the first run, the plain
    run and a warm repeat, and the peak device memory.
@@ -84,7 +88,7 @@ HEADLINE = (1440, 2880)
 FACTORS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 KERNELS = ("ak_curve", "covariance")
 COV_SIZES = (6144, 10240)  # the dense scan's and the dense solve's largest B
-COV_EDGE = (1, 1000, 6143)  # N = 1 and N off the 32-cell tile
+COV_EDGE = (1, 63, 65, 1000, 6143)  # N = 1 and N off the 64-cell tile
 COV_RTOL = 2e-4  # + atol 1e-6 * max sigma^2: the CPU tests' bounds
 LENGTH_SCALE_KM = 300.0  # run/control.yml's length_scale_km
 FULL_RTOL = 1e-9  # kernel vs plain covariance engine, after the float64 tail
@@ -94,6 +98,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 COV_OPS_PER_ELEMENT = 19  # covariance.cu: 2 sub, 1 add, 9 mul, 1 div, 1 neg,
 # 2 compares (the clip), 2 sin, 1 exp -- each sin / exp counted once
+MUFU_PER_SM_CLOCK = 16  # Hopper's special-function unit: reciprocals per SM per clock
 
 
 def log(msg: str) -> None:
@@ -142,11 +147,22 @@ def covariance_bound(n: int) -> tuple:
     return bound_ms(3 * n * 4 + n * n * 4, COV_OPS_PER_ELEMENT * n * n, torch.float32)
 
 
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout
+def division_floor_ms(n_valid: int, nfac: int, max_sm_mhz: float) -> float:
+    """ak_curve's floor on its own division unit: one MUFU reciprocal per
+    valid cell and factor, at MUFU_PER_SM_CLOCK per SM at the maximum SM
+    clock (the IEEE division's FMA steps and range check come on top)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_valid * nfac / (sms * MUFU_PER_SM_CLOCK * max_sm_mhz * 1e6) * 1e3
+
+
+def smi_query(fields: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def smi_line() -> str:
+    return smi_query("name,power.limit")
 
 
 def variances(n: int, seed: int, nan_frac: float = 0.2):
@@ -214,7 +230,8 @@ def phase_kernel(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np):
             f"max_abs_err {err:.3e}, knee {ki} == {pi}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
     edge = [("N=1", 1, 99, 0.0), ("N=2049", 2049, 99, 0.1), ("N=5*2048+3", 5 * 2048 + 3, 99, 0.1),
-            ("R=1", 10007, 1, 0.1), ("R=128", 10007, 128, 0.1), ("all-invalid", 5000, 99, 1.0)]
+            ("R=1", 10007, 1, 0.1), ("R=5", 10007, 5, 0.5), ("R=127", 10007, 127, 0.1),
+            ("R=128", 10007, 128, 0.1), ("all-invalid", 5000, 99, 1.0)]
     for name, n_e, nfac, nan_frac in edge:
         sa_e, so_e = variances(n_e, seed=n_e + nfac, nan_frac=nan_frac)
         for dtype in (torch.float32, torch.float64):
@@ -297,6 +314,9 @@ def compare_cov(args, sig, cov, what: str):
     p = cov.build_covariance_plain(*args, LENGTH_SCALE_KM)
     torch.cuda.synchronize()
     check(torch.equal(k, k2), f"{what}: two covariance kernel runs differ")
+    # the kernel mirrors its upper triangle: that is the plain B only while
+    # the plain B is itself bitwise symmetric on this card
+    check(torch.equal(p, p.T), f"{what}: the plain B is not bitwise symmetric")
     atol = 1e-6 * max(float(np.max(sig ** 2)), 1e-30)
     check(torch.allclose(k, p, rtol=COV_RTOL, atol=atol),
           f"{what}: covariance kernel vs plain beyond rtol {COV_RTOL} / atol {atol:.3e}")
@@ -467,8 +487,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
+    max_sm_mhz = float(smi_query("clocks.max.sm").split()[0])
     log("== phase 1: device and build")
-    log(f"nvidia-smi: {smi}")
+    log(f"nvidia-smi: {smi}; maximum SM clock {max_sm_mhz:g} MHz, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     check(not torch.backends.cuda.matmul.allow_tf32
@@ -600,15 +622,19 @@ def main() -> int:
         f"plain engine {oi_plain_ms:.4f} ms; regrid {regrid_steady:.4f} s/orbit; "
         f"analyze_month_fused {month_s:.3f} s")
 
-    curve_bound, curve_by = ak_curve_bound(int(valid.sum()), u.numel(), regs.numel(),
-                                           u.dtype)
-    log(f"ak_curve bound at the month's shape: {curve_bound:.4f} ms ({curve_by}); "
-        f"kernel at {curve_bound / k_ms:.1%} of it")
+    n_valid = int(valid.sum())
+    curve_bound, curve_by = ak_curve_bound(n_valid, u.numel(), regs.numel(), u.dtype)
+    curve_floor = division_floor_ms(n_valid, regs.numel(), max_sm_mhz)
+    log(f"ak_curve bound at the month's shape ({n_valid} valid): {curve_bound:.4f} ms "
+        f"({curve_by}), kernel at {curve_bound / k_ms:.1%} of it; division floor "
+        f"{curve_floor:.4f} ms, kernel at {curve_floor / k_ms:.1%} of it")
     for key, (err, ms, pms, count) in kres.items():
         dt = torch.float32 if "float32" in key else torch.float64
         b, by = ak_curve_bound(count, HEADLINE[0] * HEADLINE[1], regs.numel(), dt)
+        fl = division_floor_ms(count, regs.numel(), max_sm_mhz)
         log(f"ak_curve bound at {HEADLINE[0] * HEADLINE[1]} cells {key} ({count} valid): "
-            f"{b:.4f} ms ({by}); kernel at {b / ms:.1%} of it")
+            f"{b:.4f} ms ({by}), kernel at {b / ms:.1%} of it; division floor {fl:.4f} ms, "
+            f"kernel at {fl / ms:.1%} of it")
 
     curve_entry = {
         "name": "ak_curve",

@@ -17,100 +17,155 @@
 // What bounds it on the H100: the N^2 x 4 bytes it writes.  At N = 6,144
 // that is 151 MB, 45 us at 3.35 TB/s, against ~19 float32 operations per
 // element (each sin and exp counted once): 37.7M x 19 / 67 TFLOP/s = 11 us.
-// An accurate sinf is a few tens of instructions, though, so this first
-// version is bound by instruction issue (~100 per element) at about a third
-// of the byte bound on the H100; the speed work listed below attacks that.
+// An accurate sinf is a few tens of instructions, though, so computing every
+// element (~100 instructions each) was bound by instruction issue, at about
+// a third of the byte bound.  B is symmetric, so this kernel computes each
+// pair once, which halves that work and brings it to about half the byte
+// bound (H100: 49% at N = 5,643, 51% at 6,144, 55% at 10,240).  Computing
+// still sets the time at even N: with its stores removed the kernel takes
+// as long, while the stores alone run at the rate of a plain fill.  At odd
+// N the rows are misaligned, and the stores alone take as long as the
+// kernel.  Each element's two sinf calls and its division each carry a
+// range check and a slow-path branch; running their fast paths
+// branch-free was ~5% faster, not enough to keep a copy of sinf's code.
 //
 // Design:
-//  * One block of 32 x 8 threads writes one 32 x 32 output tile; thread
-//    (tx, ty) writes column tx of rows ty, ty + 8, ty + 16, ty + 24, so a
-//    warp stores 32 neighbouring floats of one row (128 coalesced bytes).
-//  * The tile's 32 rows and 32 columns (lat, lon, sigma and cos lat) are
+//  * Only the tiles on and above the diagonal are computed: T(T+1)/2 blocks
+//    for T = ceil(N / 64), the linear block index mapped to (row tile,
+//    column tile).  A block of 32 x 8 threads computes one 64 x 64 tile;
+//    thread (tx, ty) computes columns tx and tx + 32 of rows ty, ty + 8, ...,
+//    ty + 56 and stores each value at once, so a warp writes 128 contiguous
+//    bytes of one row.  An off-diagonal block also puts every value into a
+//    shared-memory tile padded to 65 columns, and after one barrier writes
+//    the mirror tile from it, again a row at a time: the padding keeps both
+//    the transposed reads and the writes free of bank conflicts.  A diagonal
+//    block computes its whole tile and writes it once.
+//  * The mirror is bitwise what the plain version computes for (j, i): the
+//    differences lat_j - lat_i and 0.5 x (...) are exact negatives of those
+//    for (i, j), sinf is odd (the smoke and the tests hold B bitwise
+//    symmetric on the card), only the squares of the sines are used, and
+//    cos_i cos_j and sigma_i sigma_j commute under IEEE multiplication.
+//  * The tile's 64 rows and 64 columns (lat, lon, sigma and cos lat) are
 //    staged in shared memory once per block; each cos lat is computed once
 //    per block instead of once per element.
 //  * Accurate sinf / expf, no fast math: far pairs reach exponent arguments
 //    of ~900, where __expf loses relative accuracy.  Products and sums use
 //    the _rn intrinsics so nvcc does not contract them into FMAs, and the
 //    operations follow the JAX kernel's order, so the kernel rounds as the
-//    plain PyTorch version does on the card, operation by operation.
+//    plain PyTorch version does on the card, operation by operation.  The
+//    angle-difference identity (per-row and per-column half-angle tables in
+//    place of the per-element sinf) would change B's rounding, and with it
+//    the float32 scan's knee, so it is not used.
 //  * The ragged edge is masked: N need not be a multiple of the tile, and
 //    nothing is padded (the TPU kernel required N % tile == 0 and the
 //    caller padded to 128 lanes with sigma = 0 cells; both were TPU layout
-//    constraints).  There is no reduction, so the result is bitwise
-//    repeatable.
+//    constraints).  B stays an unpadded row-major (N, N) tensor, since eigh
+//    and the scan's GEMMs read it as it is; its rows are not 16-byte aligned
+//    at odd N, which rules out a TMA store.  There is no reduction, so the
+//    result is bitwise repeatable.
 //  * Not here: the matrix-free path's on-the-fly B V tiles (_b_matmat in
 //    oisat_tpu/ops/oi_full.py) and the host LAPACK opt-out of the exact
 //    tail; neither is ported yet, so this kernel only ever builds the dense
 //    B of the dense branch.
-//  * Later speed work, not done here: B is symmetric, so writing the upper
-//    triangle and mirroring halves the sin/exp work; sin((a - b)/2) =
-//    sin(a/2)cos(b/2) - cos(a/2)sin(b/2) from per-row and per-column
-//    half-angle tables removes both per-element sinf calls.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;                  // output tile edge
-constexpr int kRowsStep = 8;               // blockDim.y
-constexpr int kMaxGridY = 65535;           // gridDim.y limit
+constexpr int kTile = 64;                  // output tile edge
+constexpr int kThreadsX = 32;              // blockDim.x
+constexpr int kThreadsY = 8;               // blockDim.y
+constexpr long long kMaxTiles = 65535;     // keeps T(T+1)/2 blocks within one int
 
 // clip(a, 0, 1) that keeps NaN, as jnp.clip and torch.clamp do
 __device__ __forceinline__ float clip01(float a) {
   return a < 0.f ? 0.f : (a > 1.f ? 1.f : a);
 }
 
-__global__ void __launch_bounds__(kTile * kRowsStep)
-covariance_tile(const float* __restrict__ lat, const float* __restrict__ lon,
-                const float* __restrict__ sigma, long long n, float c_d2,
-                float two_l2, float* __restrict__ out) {
-  __shared__ float r_lat[kTile], r_lon[kTile], r_sig[kTile], r_cos[kTile];
-  __shared__ float c_lat[kTile], c_lon[kTile], c_sig[kTile], c_cos[kTile];
+struct Cell {
+  float lat, lon, sig, cos;
+};
 
-  const long long row0 = static_cast<long long>(blockIdx.y) * kTile;
-  const long long col0 = static_cast<long long>(blockIdx.x) * kTile;
+// B[i, j] in the JAX kernel's order of operations
+__device__ __forceinline__ float element(const Cell& a, const Cell& b, float c_d2,
+                                         float two_l2) {
+  const float sdlat = sinf(__fmul_rn(0.5f, __fsub_rn(a.lat, b.lat)));
+  const float sdlon = sinf(__fmul_rn(0.5f, __fsub_rn(a.lon, b.lon)));
+  // sdlat^2 + ((cos_i cos_j) sdlon) sdlon
+  const float cross = __fmul_rn(__fmul_rn(__fmul_rn(a.cos, b.cos), sdlon), sdlon);
+  const float hav = clip01(__fadd_rn(__fmul_rn(sdlat, sdlat), cross));
+  const float decay = expf(__fdiv_rn(-__fmul_rn(c_d2, hav), two_l2));
+  return __fmul_rn(__fmul_rn(a.sig, b.sig), decay);
+}
+
+__device__ __forceinline__ Cell stage(const float* __restrict__ lat,
+                                      const float* __restrict__ lon,
+                                      const float* __restrict__ sigma, long long i,
+                                      long long n) {
+  const bool in = i < n;
+  const float la = in ? lat[i] : 0.f;
+  return Cell{la, in ? lon[i] : 0.f, in ? sigma[i] : 0.f, cosf(la)};
+}
+
+__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+covariance_upper(const float* __restrict__ lat, const float* __restrict__ lon,
+                 const float* __restrict__ sigma, long long n, float c_d2,
+                 float two_l2, float* __restrict__ out) {
+  __shared__ Cell rows[kTile], cols[kTile];
+  __shared__ float mirror[kTile][kTile + 1];
+
+  // block b -> (bi, bj), bi <= bj: b = bj (bj + 1) / 2 + bi
+  const long long b = blockIdx.x;
+  long long bj = static_cast<long long>((sqrt(8.0 * static_cast<double>(b) + 1.0) - 1.0) * 0.5);
+  while (bj * (bj + 1) / 2 > b) --bj;
+  while ((bj + 1) * (bj + 2) / 2 <= b) ++bj;
+  const long long bi = b - bj * (bj + 1) / 2;
+  const bool diagonal = bi == bj;
+  const long long row0 = bi * kTile;
+  const long long col0 = bj * kTile;
+
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int t = ty * kTile + tx;
-
-  if (t < kTile) {  // warp 0 stages the tile's rows
-    const long long i = row0 + t;
-    const bool in = i < n;
-    const float la = in ? lat[i] : 0.f;
-    r_lat[t] = la;
-    r_lon[t] = in ? lon[i] : 0.f;
-    r_sig[t] = in ? sigma[i] : 0.f;
-    r_cos[t] = cosf(la);
-  } else if (t < 2 * kTile) {  // warp 1 stages its columns
-    const int c = t - kTile;
-    const long long j = col0 + c;
-    const bool in = j < n;
-    const float la = in ? lat[j] : 0.f;
-    c_lat[c] = la;
-    c_lon[c] = in ? lon[j] : 0.f;
-    c_sig[c] = in ? sigma[j] : 0.f;
-    c_cos[c] = cosf(la);
+  const int t = ty * kThreadsX + tx;
+  if (t < kTile) {
+    rows[t] = stage(lat, lon, sigma, row0 + t, n);
+  } else if (t < 2 * kTile) {
+    cols[t - kTile] = stage(lat, lon, sigma, col0 + t - kTile, n);
   }
   __syncthreads();
 
-  const long long j = col0 + tx;
-  if (j >= n) return;
-  const float lat_j = c_lat[tx];
-  const float lon_j = c_lon[tx];
-  const float sig_j = c_sig[tx];
-  const float cos_j = c_cos[tx];
-#pragma unroll
-  for (int k = 0; k < kTile / kRowsStep; ++k) {
-    const int r = ty + k * kRowsStep;
+  // rows ty, ty + 8, ... of the tile: each value stored at once, and into
+  // the shared mirror tile unless the tile is on the diagonal
+  const Cell c0 = cols[tx];
+  const Cell c1 = cols[tx + kThreadsX];
+  const long long j0 = col0 + tx;
+  const long long j1 = j0 + kThreadsX;
+#pragma unroll 2
+  for (int r = ty; r < kTile; r += kThreadsY) {
+    const Cell a = rows[r];
     const long long i = row0 + r;
-    if (i >= n) break;
-    const float sdlat = sinf(__fmul_rn(0.5f, __fsub_rn(r_lat[r], lat_j)));
-    const float sdlon = sinf(__fmul_rn(0.5f, __fsub_rn(r_lon[r], lon_j)));
-    // sdlat^2 + ((cos_i cos_j) sdlon) sdlon, in the JAX kernel's order
-    const float cross = __fmul_rn(__fmul_rn(__fmul_rn(r_cos[r], cos_j), sdlon), sdlon);
-    const float hav = clip01(__fadd_rn(__fmul_rn(sdlat, sdlat), cross));
-    const float decay = expf(__fdiv_rn(-__fmul_rn(c_d2, hav), two_l2));
-    out[i * n + j] = __fmul_rn(__fmul_rn(r_sig[r], sig_j), decay);
+    const float v0 = element(a, c0, c_d2, two_l2);
+    const float v1 = element(a, c1, c_d2, two_l2);
+    if (i < n) {
+      if (j0 < n) out[i * n + j0] = v0;
+      if (j1 < n) out[i * n + j1] = v1;
+    }
+    if (!diagonal) {
+      mirror[r][tx] = v0;
+      mirror[r][tx + kThreadsX] = v1;
+    }
+  }
+  if (diagonal) return;
+  __syncthreads();
+
+  // the mirror tile: row col0 + r of B takes column r of the computed tile
+  const long long i0 = row0 + tx;
+  const long long i1 = i0 + kThreadsX;
+  for (int r = ty; r < kTile; r += kThreadsY) {
+    const long long j = col0 + r;
+    if (j >= n) break;
+    if (i0 < n) out[j * n + i0] = mirror[tx][r];
+    if (i1 < n) out[j * n + i1] = mirror[tx + kThreadsX][r];
   }
 }
 
@@ -127,18 +182,18 @@ int covariance_f32(const void* lat, const void* lon, const void* sigma,
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const long long tiles = (n + kTile - 1) / kTile;
-  if (tiles > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(tiles));
-  const dim3 block(kTile, kRowsStep);
-  covariance_tile<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2));
+  const dim3 block(kThreadsX, kThreadsY);
+  covariance_upper<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lat), static_cast<const float*>(lon),
       static_cast<const float*>(sigma), n, c_d2, two_l2,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Largest n one launch takes (the grid's y extent).
-long long covariance_max_n() { return static_cast<long long>(kMaxGridY) * kTile; }
+// Largest n one launch takes (T(T+1)/2 blocks must fit the grid).
+long long covariance_max_n() { return kMaxTiles * kTile; }
 
 const char* covariance_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -3,9 +3,9 @@
 Each ``oisat_tpu_torch/csrc/<name>.cu`` exposes a plain C interface.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into
 ``oisat_tpu_torch/_build/lib<name>.so`` at first use, rebuilt when the source
-is newer, and loaded with ``ctypes``.  A failed build raises with nvcc's
-output: there is no fallback.  ptxas's register / spill report is kept next
-to the library as ``lib<name>.log``.
+or a header of ``csrc/`` is newer, and loaded with ``ctypes``.  A failed
+build raises with nvcc's output: there is no fallback.  ptxas's register /
+spill report is kept next to the library as ``lib<name>.log``.
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ def _build(src: Path, lib: Path) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if missing
-    or older than its source.  Different libraries build concurrently when
-    called from several threads."""
+    or older than its source or a ``csrc/*.cuh`` header.  Different libraries
+    build concurrently when called from several threads."""
     with _lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
@@ -72,7 +72,8 @@ def load_library(name: str) -> ctypes.CDLL:
             return hit
         src = CSRC_DIR / f"{name}.cu"
         lib = BUILD_DIR / f"lib{name}.so"
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+        newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
+        if not lib.exists() or lib.stat().st_mtime < newest:
             _build(src, lib)
         handle = ctypes.CDLL(str(lib))
         with _lock:

@@ -6,7 +6,8 @@ carry ``+inf``), each engine returns the per-factor sums
 ``S_i = sum_cells r_i / (r_i + u)``; the caller divides by the valid count.
 
 * :func:`ak_curve_sums_kernel` launches ``csrc/ak_curve.cu`` (CUDA tensors
-  only).  It counts its launches in ``ak_curve_sums_kernel.launches``.
+  only), one launch per call.  It counts its launches in
+  ``ak_curve_sums_kernel.launches``.
 * :func:`ak_curve_sums_plain` is the same function in plain PyTorch.
 * :func:`ak_curve_sums` picks by the tensor's device: plain on the CPU, the
   kernel on CUDA.
@@ -22,9 +23,10 @@ import torch
 from oisat_tpu_torch.ops.kernels._build import load_library
 
 __all__ = ["ak_curve_sums", "ak_curve_sums_kernel", "ak_curve_sums_plain",
-           "MAX_FACTORS"]
+           "MAX_FACTORS", "TILE_CELLS"]
 
 MAX_FACTORS = 128  # the kernel's factor limit (ak_curve_max_factors)
+TILE_CELLS = 512  # cells the kernel stages per step (ak_curve_tile_cells)
 _SOURCE = "ak_curve"
 
 
@@ -40,19 +42,36 @@ def _library() -> ctypes.CDLL:
     the stream as c_void_p: ctypes would cut them to 32-bit ints)."""
     lib = load_library(_SOURCE)
     args = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
     for fn in (lib.ak_curve_sums_f32, lib.ak_curve_sums_f64):
         fn.argtypes = args
         fn.restype = ctypes.c_int
     lib.ak_curve_num_blocks.argtypes = [ctypes.c_longlong]
     lib.ak_curve_num_blocks.restype = ctypes.c_int
-    lib.ak_curve_max_factors.argtypes = []
-    lib.ak_curve_max_factors.restype = ctypes.c_int
+    for fn in (lib.ak_curve_max_factors, lib.ak_curve_tile_cells):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.ak_curve_error_string.argtypes = [ctypes.c_int]
     lib.ak_curve_error_string.restype = ctypes.c_char_p
-    if lib.ak_curve_max_factors() != MAX_FACTORS:
-        raise RuntimeError("ak_curve.cu and oi_scan.py disagree on the factor limit")
+    if (lib.ak_curve_max_factors(), lib.ak_curve_tile_cells()) != (MAX_FACTORS, TILE_CELLS):
+        raise RuntimeError("ak_curve.cu and oi_scan.py disagree on the factor limit "
+                           "or the tile size")
     return lib
+
+
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(stream: int) -> torch.Tensor:
+    """The kernel's zeroed ticket counter for ``stream`` on the current
+    device.  Each launch's last block resets it to 0, so launches on one
+    stream, which run in order, share it; launches on two streams never do."""
+    key = (torch.cuda.current_device(), stream)
+    hit = _tickets.get(key)
+    if hit is None:
+        hit = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=key[0])
+    return hit
 
 
 def ak_curve_sums_kernel(u: torch.Tensor, regs: torch.Tensor) -> torch.Tensor:
@@ -82,8 +101,9 @@ def ak_curve_sums_kernel(u: torch.Tensor, regs: torch.Tensor) -> torch.Tensor:
     fn = lib.ak_curve_sums_f32 if u.dtype == torch.float32 else lib.ak_curve_sums_f64
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
+        ticket = _ticket(stream)
         rc = fn(u.data_ptr(), n, regs.data_ptr(), nfac, partials.data_ptr(),
-                nblocks, out.data_ptr(), stream)
+                nblocks, ticket.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         msg = lib.ak_curve_error_string(rc).decode()
         raise RuntimeError(f"ak_curve kernel launch failed: CUDA error {rc} ({msg})")

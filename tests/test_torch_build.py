@@ -1,7 +1,8 @@
 """The port's kernel build helper (oisat_tpu_torch.ops.kernels._build) on the
 CPU, with a stand-in for nvcc: the build flags target sm_90a, a failed build
 raises with the compiler's output and leaves nothing behind, a good build is
-written atomically with its ptxas log, and a newer source is rebuilt."""
+written atomically with its ptxas log, and a newer source or header is
+rebuilt."""
 
 import os
 import stat
@@ -70,6 +71,14 @@ def test_build_targets_sm90a_keeps_log_and_rebuilds_newer_source(fake_toolchain,
     monkeypatch.setattr(_build, "_loaded", {})
     _build.load_library("k")
     assert len((fake_toolchain / "args.txt").read_text().splitlines()) == 2
+    # so does one with a newer header of csrc/ (ak_curve.cu includes fast_paths.cuh)
+    header = fake_toolchain / "csrc" / "shared.cuh"
+    header.write_text("// shared\n")
+    later = lib.stat().st_mtime + 10
+    os.utime(header, (later, later))
+    monkeypatch.setattr(_build, "_loaded", {})
+    _build.load_library("k")
+    assert len((fake_toolchain / "args.txt").read_text().splitlines()) == 3
 
 
 def test_concurrent_loads_build_each_library_once(fake_toolchain):

@@ -8,7 +8,8 @@ GPU host with ``python -m pytest --noconftest tests/test_torch_covariance.py
 Tolerances: rtol 2e-4 / atol 1e-6 * max sigma^2 against the JAX kernel and
 the golden -- the JAX test's own bounds (tests/test_oi_full.py:19), which
 cover float32 sin/exp.  On the card the kernel and the plain version round
-operation by operation alike, so they are bitwise equal.
+operation by operation alike, so they are bitwise equal; B is bitwise
+symmetric, which lets the kernel compute one triangle and mirror it.
 """
 
 import numpy as np
@@ -81,6 +82,24 @@ def test_all_zero_sigma_gives_zero_matrix():
     assert torch.equal(got, torch.zeros(77, 77))
 
 
+@pytest.mark.parametrize("n, seed", [(500, 0), (1500, 1)])
+def test_plain_is_bitwise_symmetric(n, seed):
+    """B[j, i] rounds exactly as B[i, j] (the CUDA kernel computes the upper
+    triangle and mirrors it): the coordinate differences negate exactly,
+    sin is odd, only its square enters, and the products commute."""
+    lat, lon, sig = _coords(n, seed=seed)
+    b = cov.build_covariance(lat, lon, sig, 300.0, device="cpu")
+    assert torch.equal(b, b.T)
+
+
+def test_sin_is_odd_on_float32_half_differences():
+    """The property the mirror rests on, on its own: torch.sin(-x) is
+    exactly -torch.sin(x) over the half-differences of radians B takes."""
+    x = torch.as_tensor(np.random.default_rng(2).uniform(-3.2, 3.2, 100_000),
+                        dtype=torch.float32)
+    assert torch.equal(torch.sin(-x), -torch.sin(x))
+
+
 def test_radians_follow_the_jax_rounding():
     """Degrees are cast to float32 first, then scaled by float32(pi/180), as
     ``jnp.deg2rad(jnp.asarray(deg, jnp.float32))`` does."""
@@ -123,11 +142,16 @@ def _both(lat, lon, sig, length_scale_km, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 6144])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 1000, 5643, 6144])
 def test_kernel_matches_plain(cuda, n):
+    """Every n, including ragged diagonal tiles of 32- and 64-cell tiles:
+    kernel and plain bitwise equal and bitwise symmetric, and within the
+    golden's bounds."""
     lat, lon, sig = _coords(n, seed=n)
     k, p = _both(lat, lon, sig, 300.0, cuda)
-    _assert_close(k, p, sig)
+    assert np.array_equal(p, p.T)
+    assert np.array_equal(k, k.T)
+    assert np.array_equal(k, p)
     _assert_close(k, cov.build_covariance_reference(lat, lon, sig, 300.0), sig)
 
 

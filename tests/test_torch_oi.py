@@ -168,6 +168,21 @@ def test_kernel_engine_refuses_cpu_tensors():
         port_oi.oi(*(_t(a, np.float64) for a in make_fields(0)), curve_impl="xla")
 
 
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_invalid_cell_term_is_positive_zero(dt):
+    """The CUDA kernel skips the cells with u = +inf, which is exact because
+    each such term r / (r + inf) is +0.0 (no sign bit) and adding +0.0 to a
+    sum that starts at +0.0 leaves it +0.0 and any other sum unchanged."""
+    regs = _t(port_oi.regularization_grid(), dt)
+    term = regs / (regs + torch.tensor(np.inf, dtype=TDT[dt]))
+    assert torch.equal(term, torch.zeros_like(term))
+    assert not torch.signbit(term).any()
+    zero = torch.zeros((), dtype=TDT[dt])
+    assert not torch.signbit(zero + term).any()
+    sums = torch.rand(99, dtype=TDT[dt], generator=torch.Generator().manual_seed(0))
+    assert torch.equal(sums + term, sums)
+
+
 def test_plain_sums_and_wrapper_agree_on_cpu():
     u = torch.rand(1000, dtype=torch.float64)
     regs = _t(port_oi.regularization_grid(), np.float64)
