@@ -60,11 +60,44 @@ Phases (any failure raises, exit code != 0):
    (``stage_ms``: assembly, step, pull, compaction, covariance, eigh, the
    scan's GEMMs, knee, tail, residual, ...) for the first run, the plain
    run and a warm repeat, and the peak device memory.
+8. The MOPITT CO month: 30 daily L3 granules on the product's 1 degree grid
+   (360 x 180 cells, 9 retrieval levels, the 10-row averaging kernel with
+   the surface row first, ~20% missing), regridded with the MOPITT_CO
+   constants (linear, 1.0 degree, flag threshold 0.0).  The CTM (72 levels,
+   the mean of 8 snapshots) is finer than 1 degree, so its matched slices
+   are mapped onto the granule grid.  The month runs both ways on the same
+   granules: staged (``conv_ak`` -> ``average`` -> ``bias_correct`` ->
+   ``oi``) and ``analyze_month_fused``.  Checks: the nine driver fields
+   agree within rtol 2e-4 / atol 2e-5 of the field's largest magnitude with
+   identical NaN patterns; the same regularization factor; the posterior
+   finite wherever prior, observation and error are; the ak_curve kernel
+   launched exactly once per scalar OI pass.
+9. The GOSAT XCH4 month: 30 daily sets of 3,000 sparse soundings (20
+   levels, float32 kernels / weights / a-priori) -> ``filler_gosatxch4``
+   (1 degree maps) -> ``regrid_granule`` with the GOSAT_XCH4 constants ->
+   staged and fused as above; the OI ran on the xcol pair (``aux2``,
+   ``aux1``) and ``ctm_averaged_vcd`` is all NaN.
+10. The SSMIS water-vapour month: 3 monthly maps (one per satellite) on the
+    0.25 degree global grid (720 x 1440, ~20% missing, flat 5% error) ->
+    ``regrid_ssmis_granule`` onto the CTM grid -> ``cal_pwv`` staged and
+    fused as above.
+11. Desroziers: on phase 8's averaged fields ``oi("MOPITT",
+    desroziers_iterations=2)`` globally and with 4 latitude bands: chi2
+    moves toward 1 against the first pass, the scale maps are set only when
+    binned, a repeat is bitwise equal, 3 kernel launches per call.  On phase
+    7's CONUS month ``analyze_month_fused(oi_method="full",
+    desroziers_iterations=1)`` finishes with finite fields and reports
+    ``desroziers_iterations``.
+
+Each new month logs its wall seconds, the stage split (one stage per driver
+method), the regrid seconds per granule, the host<->device copies of the
+staged path and the peak device memory.
 
 Reductions from a real deployment: a real OMI month is ~430 orbits, whose
 inputs (430 x 872 B x 207,936 cells ~ 78 GB) would fill the 80 GB card, so
-the month is cut to 60 orbits, the repo's own synthetic month.  Widths,
-levels and grids are the products' own.  The data are synthetic, made from
+the month is cut to 60 orbits, the repo's own synthetic month.  The MOPITT
+and GOSAT months hold 30 days and the SSMIS month 3 satellites, as real ones
+do.  Widths, levels and grids are the products' own.  The data are synthetic, made from
 numpy seeds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
@@ -73,6 +106,7 @@ each kernel with its launches on its path, error, times and bound.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -92,6 +126,14 @@ COV_EDGE = (1, 63, 65, 1000, 6143)  # N = 1 and N off the 64-cell tile
 COV_RTOL = 2e-4  # + atol 1e-6 * max sigma^2: the CPU tests' bounds
 LENGTH_SCALE_KM = 300.0  # run/control.yml's length_scale_km
 FULL_RTOL = 1e-9  # kernel vs plain covariance engine, after the float64 tail
+MONTH = ("2019-07-01", "2019-08-01")
+DRIVER_FIELDS = ("sat_averaged_vcd", "sat_averaged_error", "ctm_averaged_vcd", "aux1", "aux2",
+                 "ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI")
+# fused month vs staged path, float32 granules: the bound of the JAX package's
+# own fused-vs-staged tests, the absolute part on the field's largest magnitude
+STAGED_RTOL, STAGED_ATOL = 2e-4, 2e-5
+N_DAYS = 30  # MOPITT and GOSAT granules of the month
+N_SSMIS = 3  # one monthly map per satellite
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FLOP/s outside the
 # tensor cores; the card's power limit is printed beside every time
 PEAK_BYTES_S = 3.35e12
@@ -466,7 +508,345 @@ def phase_full_month(dev, cov, oi_scan, native):
           f"picked factor {again.oi_diagnostics['reg']} instead of {diag['reg']}")
     log_stages("full month, kernel engine again (warm)", again_ms, again_s)
     return dict(launches=cov_launches, err=cov_err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bms, bound_by=by, cells=n)
+                bound_ms=bms, bound_by=by, cells=n, reader=reader)
+
+
+def implied_factor(obj, sensor: str, grid) -> int:
+    """The index of the regularization factor a scalar OI chose, read back
+    from its fields: ak = Sa r / (Sa r + So) gives r = ak / (1 - ak) * So / Sa
+    on every analysed cell."""
+    xa = obj.aux2 if sensor == "GOSAT" else obj.ctm_averaged_vcd
+    sa, so, ak = (xa * 0.5) ** 2, obj.sat_averaged_error ** 2, obj.ak_OI
+    ok = np.isfinite(ak) & (ak > 0) & (ak < 1) & (sa > 0) & (so > 0)
+    check(ok.sum() > 100, f"{sensor}: too few cells to read the factor back")
+    r = float(np.median(ak[ok] / (1.0 - ak[ok]) * so[ok] / sa[ok]))
+    idx = int(np.argmin(np.abs(grid - r)))
+    # ak near 1 in float32 leaves 1 - ak a few 1e-4 of relative error
+    check(abs(grid[idx] - r) < 0.02, f"{sensor}: implied factor {r} is off the grid")
+    return idx
+
+
+def assert_fused_equals_staged(fused, staged, what: str) -> float:
+    """The nine driver fields of the fused month against the staged path:
+    identical NaN patterns, values within STAGED_RTOL / STAGED_ATOL of the
+    field's largest magnitude; returns the largest scaled difference."""
+    worst = 0.0
+    for name in DRIVER_FIELDS:
+        a, b = getattr(fused, name), getattr(staged, name)
+        check(a.shape == b.shape, f"{what} {name}: shapes {a.shape} vs {b.shape}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{what} {name}: NaN patterns differ")
+        fin = np.isfinite(b)
+        if not fin.any():
+            continue
+        scale = float(np.abs(b[fin]).max())
+        np.testing.assert_allclose(a[fin], b[fin], rtol=STAGED_RTOL, atol=STAGED_ATOL * scale,
+                                   err_msg=f"{what} {name}")
+        worst = max(worst, float(np.abs(a[fin] - b[fin]).max()) / max(scale, 1e-300))
+    return worst
+
+
+def phase_sensor_month(sensor: str, gas: str, ctm, grans, regrid_s, oi_scan, grid):
+    """One month of a non-AMF sensor through the driver both ways on the
+    same gridded granules: the staged methods, then ``analyze_month_fused``.
+    Returns (staged session, ak_curve launches of the two runs, the curve
+    kernel's times at this month's shape)."""
+    from oisat_tpu_torch import _device
+    from oisat_tpu_torch.driver import oisatgmi
+
+    check(all(g is not None for g in grans), f"{sensor}: a granule did not regrid")
+    what = f"{sensor} month"
+    reader = SimpleNamespace(ctm_data=[ctm], sat_data=[copy.copy(g) for g in grans])
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    _device.COPIES.update(h2d=0, d2h=0)
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path of this slice, staged ----
+    staged = oisatgmi(stage_ms={})
+    staged.reader_obj = reader
+    t0 = time.perf_counter()
+    if sensor == "SSMIS":
+        staged.cal_pwv()
+    else:
+        staged.conv_ak(sensor)
+    staged.average(*MONTH, gasname=gas)
+    staged.bias_correct(sensor, gas)
+    staged.oi(sensor, error_ctm=50.0)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    staged_launches = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the staged path ----
+    copies = dict(_device.COPIES)
+    staged_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(staged_launches == 1, f"{what}, staged: {staged_launches} ak_curve launches for "
+          "1 scalar OI pass")
+
+    torch.cuda.reset_peak_memory_stats()
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path of this slice, fused ----
+    fused = oisatgmi(stage_ms={})
+    fused.reader_obj = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
+    t0 = time.perf_counter()
+    out = fused.analyze_month_fused(sensor, gas, *MONTH, error_ctm=50.0)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_launches = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the fused path ----
+    fused_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(fused_launches == 1, f"{what}, fused: {fused_launches} ak_curve launches for "
+          "1 scalar OI pass")
+
+    worst = assert_fused_equals_staged(fused, staged, what)
+    reg_index = int(out.oi.reg_index)
+    check(0 <= reg_index < grid.size, f"{what}: reg_index {reg_index}")
+    check(implied_factor(fused, sensor, grid) == reg_index,
+          f"{what}: the fused fields do not carry the factor of reg_index {reg_index}")
+    check(implied_factor(staged, sensor, grid) == reg_index,
+          f"{what}: staged and fused picked different factors")
+    if sensor == "GOSAT":
+        xa, y = fused.aux2, fused.aux1
+        check(np.isnan(fused.ctm_averaged_vcd).all() and np.isnan(staged.ctm_averaged_vcd).all(),
+              "GOSAT: the model VCD must stay NaN")
+        inc = np.isfinite(fused.increment_OI)
+        np.testing.assert_allclose((fused.ctm_averaged_vcd_corrected - xa)[inc],
+                                   fused.increment_OI[inc], rtol=1e-4, atol=1e-3,
+                                   err_msg="GOSAT: the OI did not run on the xcol pair")
+    else:
+        xa, y = fused.ctm_averaged_vcd, fused.sat_averaged_vcd
+    both = np.isfinite(xa) & np.isfinite(y) & np.isfinite(fused.sat_averaged_error)
+    check(both.sum() > 0.02 * both.size, f"{what}: only {both.sum()} of {both.size} cells")
+    for obj in (staged, fused):
+        check(np.isfinite(obj.ctm_averaged_vcd_corrected[both]).all(),
+              f"{what}: posterior not finite where prior and observation are")
+        d = obj.oi_diagnostics
+        check(d["n"] > 0 and np.isfinite(d["chi2"]), f"{what}: innovation stats {d}")
+    check(staged.oi_diagnostics["n"] == fused.oi_diagnostics["n"], f"{what}: n differs")
+
+    def stages(ms):
+        return " + ".join(f"{k} {v:.1f}" for k, v in ms.items()) + " ms"
+
+    d = fused.oi_diagnostics
+    log(f"{what}: {len(grans)} granules {tuple(grans[0].vcd.shape)} "
+        f"(ctm_upscaled_needed {grans[0].ctm_upscaled_needed}), regrid "
+        f"{regrid_s[0]:.3f} s first, then {np.mean(regrid_s[1:]):.4f} s/granule; "
+        f"{int(both.sum())} of {both.size} cells analysed, factor {grid[reg_index]:.1f} "
+        f"(index {reg_index}) both ways, dtype {out.oi.xb.dtype}")
+    log(f"{what}: innovation n={int(d['n'])} OmB {d['omb_mean']:+.4g}/{d['omb_rms']:.4g} "
+        f"OmA {d['oma_mean']:+.4g}/{d['oma_rms']:.4g} chi2 {d['chi2']:.4g}")
+    log(f"{what}, staged: {staged_s:.3f} s = {stages(staged.stage_ms)}; ak_curve launches "
+        f"{staged_launches}; host->device copies {copies['h2d']}, device->host "
+        f"{copies['d2h']}; peak device memory {staged_gb:.2f} GB ({base_gb:.2f} GB held "
+        "before)")
+    log(f"{what}, fused: {fused_s:.3f} s = {stages(fused.stage_ms)}; ak_curve launches "
+        f"{fused_launches}; peak device memory {fused_gb:.2f} GB; fused == staged on "
+        f"{len(DRIVER_FIELDS)} fields (rtol {STAGED_RTOL:g}, atol {STAGED_ATOL:g} of the "
+        f"largest magnitude; largest scaled difference {worst:.2e})")
+    shape = month_device_times(sensor, ctm, grans, out, oi_scan, grid)
+    return staged, staged_launches + fused_launches, shape
+
+
+def month_device_times(sensor: str, ctm, grans, out, oi_scan, grid) -> dict:
+    """Where a new month's time goes, and the ak_curve kernel against its
+    plain version at this month's own shape: the host's time-collapse of the
+    CTM (numpy nanmean over the snapshots), the month step and its vertical
+    operator alone between CUDA events, and the curve kernel's entry for the
+    ``kernels`` line."""
+    from oisat_tpu_torch import obs_operators as ops
+    from oisat_tpu_torch.driver import oisatgmi
+    from oisat_tpu_torch.ops import vertical
+    from oisat_tpu_torch.ops.oi import curve_inputs
+    from oisat_tpu_torch.parallel.analysis import over_granule_chunks
+
+    names = {"MOPITT": ("pressure_mid", "gas_profile", "delta_p"),
+             "GOSAT": ("pressure_mid", "gas_profile"),
+             "SSMIS": ("delta_p", "gas_profile")}[sensor]
+    t0 = time.perf_counter()
+    ops._time_collapsed(ctm, names)
+    collapse_s = time.perf_counter() - t0
+    kind = "ssmis" if sensor == "SSMIS" else "opt"
+    inputs, step = oisatgmi._fused_inputs(kind, sensor, [ctm], grans)
+    i = inputs
+    operator, args = {
+        "MOPITT": lambda: (vertical.ak_conv_mopitt_fields, (
+            i.ctm_pmid, i.ctm_profile, i.ctm_airpc, i.sat_pmid, i.aks, i.aprior_col,
+            i.apriori_profile, i.apriori_surface, i.vcd)),
+        "GOSAT": lambda: (vertical.ak_conv_gosat_fields, (
+            i.ctm_pmid, i.ctm_profile, i.sat_pmid, i.aks, i.apriori_profile,
+            i.pressure_weight, i.x_col)),
+        "SSMIS": lambda: (vertical.pwv_fields, (i.water_pc, i.vcd)),
+    }[sensor]()
+    step_ms = cuda_ms(lambda: step(inputs), reps=3)
+    op_ms = cuda_ms(lambda: over_granule_chunks(operator, args), reps=3)
+    del inputs, i, args
+
+    xa = out.aux2 if sensor == "GOSAT" else out.ctm_vcd
+    u, valid = curve_inputs((xa * 50.0 / 100.0) ** 2, out.sat_error ** 2)
+    u = u.reshape(-1).contiguous()
+    regs = torch.as_tensor(grid, dtype=u.dtype, device=u.device)
+    n_valid = int(valid.sum())
+    err, _, _ = compare_curve(u, regs, n_valid, oi_scan, f"{sensor} month curve")
+    k_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(u, regs), reps=50)
+    p_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_plain(u, regs), reps=10)
+    bms, by = ak_curve_bound(n_valid, u.numel(), regs.numel(), u.dtype)
+    log(f"{sensor} month, where the time goes: host time-collapse of the CTM "
+        f"({len(names)} numpy nanmeans over {ctm.pressure_mid.shape}) {collapse_s:.3f} s; "
+        f"the month step {step_ms:.2f} ms, its vertical operator alone {op_ms:.2f} ms "
+        "(CUDA events)")
+    log(f"ak_curve at the {sensor} month's shape ({u.numel()} cells, {n_valid} valid, x "
+        f"{regs.numel()} factors, {u.dtype}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}), max_abs_err {err:.3e}")
+    return {"path": f"{sensor.lower()}_month", "cells": u.numel(), "factors": regs.numel(),
+            "dtype": str(u.dtype).replace("torch.", ""), "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bms, "bound_by": by}
+
+
+def timed_regrid(fn, items):
+    """``fn(item)`` for every item, each closed by a device synchronise:
+    (results, seconds per item)."""
+    out, secs = [], []
+    for it in items:
+        t0 = time.perf_counter()
+        out.append(fn(it))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def phase_mopitt(dev, oi_scan, grid):
+    from oisat_tpu_torch.entry import synthetic_mopitt_month
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    log(f"== phase 8: the MOPITT CO month ({N_DAYS} daily L3 granules), staged and fused")
+    t0 = time.perf_counter()
+    days, ctm, lon2d, lat2d = synthetic_mopitt_month(N_DAYS, seed=0)
+    log(f"MOPITT month built on the host in {time.perf_counter() - t0:.1f} s: {len(days)} "
+        f"granules {days[0].vcd.shape} x {days[0].pressure_mid.shape[0]} levels, kernel "
+        f"{days[0].averaging_kernels.shape[0]} rows, CTM {ctm.pressure_mid.shape}")
+    grans, secs = timed_regrid(
+        lambda g: regrid_granule(1, 1.0, g, lon2d, lat2d, dev, flag_thresh=0.0), days)
+    check(all(g.ctm_upscaled_needed for g in grans), "MOPITT: the CTM must be upscaled")
+    return phase_sensor_month("MOPITT", "CO", ctm, grans, secs, oi_scan, grid)
+
+
+def phase_gosat(dev, oi_scan, grid):
+    from oisat_tpu_torch.entry import synthetic_gosat_month
+    from oisat_tpu_torch.readers.sensors.gosat import filler_gosatxch4
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    log(f"== phase 9: the GOSAT XCH4 month ({N_DAYS} daily sets of soundings), staged "
+        "and fused")
+    t0 = time.perf_counter()
+    days, ctm, lon2d, lat2d = synthetic_gosat_month(N_DAYS, seed=0)
+    log(f"GOSAT month built on the host in {time.perf_counter() - t0:.1f} s: {len(days)} "
+        f"days x {days[0].vcd.shape[0]} soundings x {days[0].pressure_mid.shape[0]} levels, "
+        f"kernels {days[0].averaging_kernels.dtype}, CTM {ctm.pressure_mid.shape}")
+    filled, fill_s = timed_regrid(
+        lambda g: filler_gosatxch4(1.0, g, dev, flag_thresh=0.0), days)
+    check(all(f is not None and f.vcd.shape == (181, 361) for f in filled),
+          "GOSAT: the filler did not give 1 degree global maps")
+    grans, secs = timed_regrid(
+        lambda f: regrid_granule(1, 1.0, f, lon2d, lat2d, dev, flag_thresh=0.0), filled)
+    log(f"GOSAT filler: {fill_s[0]:.3f} s first, then {np.mean(fill_s[1:]):.4f} s/day; "
+        f"{int(np.isfinite(filled[0].vcd).sum())} of {filled[0].vcd.size} map cells filled "
+        "on day 1")
+    return phase_sensor_month("GOSAT", "CH4", ctm, grans, secs, oi_scan, grid)
+
+
+def phase_ssmis(dev, oi_scan, grid):
+    from oisat_tpu_torch.entry import synthetic_ssmis_month
+    from oisat_tpu_torch.regridder import regrid_ssmis_granule
+
+    log(f"== phase 10: the SSMIS water-vapour month ({N_SSMIS} monthly maps), staged "
+        "and fused")
+    t0 = time.perf_counter()
+    maps, ctm, lon2d, lat2d = synthetic_ssmis_month(N_SSMIS, seed=0)
+    log(f"SSMIS month built on the host in {time.perf_counter() - t0:.1f} s: {len(maps)} "
+        f"maps {maps[0].vcd.shape}, CTM {ctm.pressure_mid.shape}")
+    grans, secs = timed_regrid(
+        lambda g: regrid_ssmis_granule(0.25, g, lon2d, lat2d, dev), maps)
+    check(all(tuple(g.vcd.shape) == lat2d.shape and not g.ctm_upscaled_needed for g in grans),
+          "SSMIS: the maps must land on the CTM grid")
+    return phase_sensor_month("SSMIS", "H2O", ctm, grans, secs, oi_scan, grid)
+
+
+def phase_desroziers(oi_scan, cov, mopitt, full_reader):
+    """Desroziers re-estimation on phase 8's averaged fields (scalar OI,
+    global and 4 latitude bands) and on phase 7's CONUS month (full OI).
+    Returns (ak_curve launches of the scalar runs, covariance launches of
+    the full run)."""
+    from oisat_tpu_torch.driver import oisatgmi
+
+    log("== phase 11: Desroziers re-estimation")
+    first_chi2 = mopitt.oi_diagnostics["chi2"]
+    total = 0
+    for bins in (1, 4):
+        runs = []
+        for _ in range(2):
+            oi_scan.ak_curve_sums_kernel.launches = 0
+            # ---- main path: the OI with two re-estimation passes ----
+            t0 = time.perf_counter()
+            mopitt.oi("MOPITT", error_ctm=50.0, desroziers_iterations=2, desroziers_bins=bins)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = oi_scan.ak_curve_sums_kernel.launches
+            # ---- end ----
+            check(launches == 3, f"Desroziers ({bins} bins): {launches} ak_curve launches "
+                  "for 3 scalar OI passes")
+            total += launches
+            runs.append(({n: getattr(mopitt, n).copy() for n in DRIVER_FIELDS[5:]},
+                         dict(mopitt.oi_diagnostics), mopitt.desroziers_sa_scale_map))
+        d = runs[0][1]
+        check(d["desroziers_iterations"] == 2, f"Desroziers diagnostics {d}")
+        check(abs(d["chi2"] - 1.0) < abs(first_chi2 - 1.0),
+              f"Desroziers ({bins} bins): chi2 {first_chi2} -> {d['chi2']} moved away from 1")
+        check((runs[0][2] is not None) == (bins > 1),
+              f"Desroziers ({bins} bins): scale maps set only when binned")
+        if bins > 1:
+            check(runs[0][2].shape == mopitt.ak_OI.shape and d["desroziers_bins"] == bins,
+                  "Desroziers: the binned scale map's shape")
+        for name, a in runs[0][0].items():
+            check(np.array_equal(a, runs[1][0][name], equal_nan=True),
+                  f"Desroziers ({bins} bins): {name} differs between two runs")
+        check(runs[0][1] == runs[1][1], f"Desroziers ({bins} bins): diagnostics differ "
+              "between two runs")
+        log(f"Desroziers on the MOPITT month, {bins} bin(s): chi2 {first_chi2:.4g} -> "
+            f"{d['chi2']:.4g}, Sa x{d['desroziers_sa_scale']:.4g}, So "
+            f"x{d['desroziers_so_scale']:.4g}"
+            + (f" (per band Sa {d['desroziers_sa_scale_min']:.3g}-"
+               f"{d['desroziers_sa_scale_max']:.3g}, So {d['desroziers_so_scale_min']:.3g}-"
+               f"{d['desroziers_so_scale_max']:.3g})" if bins > 1 else "")
+            + f"; {secs:.3f} s (oi stage {mopitt.stage_ms['oi']:.1f} ms summed so far), "
+            f"{launches} ak_curve launches, repeat bitwise equal")
+
+    obj = oisatgmi()
+    obj.reader_obj = full_reader
+    stage_ms: dict = {}
+    cov.build_covariance_kernel.launches = 0
+    # ---- main path: the full-covariance month with one re-estimation pass ----
+    t0 = time.perf_counter()
+    out = obj.analyze_month_fused("OMI", "NO2", *MONTH, oi_method="full",
+                                  length_scale_km=LENGTH_SCALE_KM, desroziers_iterations=1,
+                                  stage_ms=stage_ms)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cov_launches = cov.build_covariance_kernel.launches
+    # ---- end ----
+    check(cov_launches == 2, f"full-covariance Desroziers: {cov_launches} covariance "
+          "launches for 2 solves")
+    d = obj.oi_diagnostics
+    check(d.get("desroziers_iterations") == 1 and "desroziers_sa_scale" in d,
+          f"full-covariance Desroziers diagnostics {d}")
+    check(int(out.oi.reg_index) == -1, "the step ran its scalar OI on a full month")
+    xa, y, so = obj.ctm_averaged_vcd, obj.sat_averaged_vcd, obj.sat_averaged_error
+    both = np.isfinite(xa) & np.isfinite(y) & np.isfinite(so) & (so > 0)
+    for name in DRIVER_FIELDS[5:]:
+        check(np.isfinite(getattr(obj, name)[both]).all(),
+              f"full-covariance Desroziers: {name} not finite")
+    log(f"Desroziers on the CONUS month (oi_method='full', 1 pass): {secs:.3f} s, "
+        f"oi_full {stage_ms.get('oi_full', 0.0):.1f} ms for 2 solves; Sa "
+        f"x{d['desroziers_sa_scale']:.4g}, So x{d['desroziers_so_scale']:.4g}, chi2 "
+        f"{d['chi2']:.4g}, factor {d.get('reg')}, solver {d.get('solver')}; "
+        f"{cov_launches} covariance launches")
+    return total, cov_launches
 
 
 def main() -> int:
@@ -550,7 +930,8 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_ok = sum(g is not None for g in grans)
     check(n_ok == N_ORBITS, f"only {n_ok} of {N_ORBITS} orbits regridded")
-    check(launches > 0, "the month never launched the ak_curve kernel")
+    check(launches == 1, f"the month launched the ak_curve kernel {launches} times for "
+          "1 scalar OI pass")
     regrid_steady = float(np.mean(per_orbit[1:]))
     log(f"regrid: first orbit {per_orbit[0]:.3f} s (fine grid + upscaler build), "
         f"then {regrid_steady:.4f} s/orbit (mean of {N_ORBITS - 1})")
@@ -591,7 +972,7 @@ def main() -> int:
 
     log("== phase 5: timings")
     t0 = time.perf_counter()
-    inputs = oisatgmi._fused_inputs([ctm], grans)
+    inputs, _ = oisatgmi._fused_inputs("amf", "OMI", [ctm], grans)
     torch.cuda.synchronize()
     assemble_s = time.perf_counter() - t0
     kw = dict(bias_offset=0.32, bias_slope=0.63)
@@ -657,6 +1038,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     cov_times = phase_covariance(dev, cov)
     full = phase_full_month(dev, cov, oi_scan, native)
+    mopitt, mopitt_launches, mopitt_shape = phase_mopitt(dev, oi_scan, regs_np)
+    by_path = {"omi_fused_month": launches, "mopitt_staged_and_fused": mopitt_launches}
+    by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
+                                                                    full["reader"])
+    del mopitt
+    torch.cuda.empty_cache()
+    _, by_path["gosat_staged_and_fused"], gosat_shape = phase_gosat(dev, oi_scan, regs_np)
+    torch.cuda.empty_cache()
+    _, by_path["ssmis_staged_and_fused"], ssmis_shape = phase_ssmis(dev, oi_scan, regs_np)
+    curve_entry["launches"] = sum(by_path.values())
+    curve_entry["launches_by_path"] = by_path
+    # the same kernel held against its plain version at the other months' shapes
+    curve_entry["other_shapes"] = [mopitt_shape, gosat_shape, ssmis_shape]
+    log(f"ak_curve launches on the driven paths: {by_path}")
     for n, (ms, pms, bms, by) in cov_times.items():
         log(f"covariance at n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
@@ -667,7 +1062,9 @@ def main() -> int:
         "route": "cuda",
         "source": "oisat_tpu_torch/csrc/covariance.cu",
         "replaces": "oisat_tpu/ops/kernels/covariance.py:32",
-        "launches": full["launches"],
+        "launches": full["launches"] + cov_desroziers,
+        "launches_by_path": {"omi_full_month": full["launches"],
+                             "desroziers_full_month": cov_desroziers},
         "max_abs_err": full["err"],
         "ms": full["ms"],
         "plain_ms": full["plain_ms"],

@@ -14,6 +14,14 @@ mirror the JAX layout so each counterpart is easy to find:
   host:   driver.oisatgmi.analyze_month_fused (one device->host pull)
   full:   oi_method="full" -> ops.oi_full.oi_full (covariance: CUDA kernel
           ops.kernels.covariance; eigh scan + exact float64 tail on the card)
+  kinds:  satellite_amf (above), satellite_opt (MOPITT / GOSAT averaging-
+          kernel convolution; readers.sensors.gosat fills the sparse GOSAT
+          soundings first) and satellite_ssmis (regridder.regrid_ssmis_granule,
+          precipitable water): parallel.analysis.mopitt_month_step /
+          gosat_month_step / ssmis_month_step
+  staged: driver.oisatgmi.recal_amf / conv_ak / cal_pwv (obs_operators)
+          -> average (ops.averaging.averaging) -> bias_correct -> oi
+          (scalar or full, Desroziers re-estimation) -> savedaily
 
 The package imports torch, numpy and scipy, and nothing of jax or of
 ``oisat_tpu``.  Tensors are created on the device the caller names; a CUDA

@@ -1,28 +1,71 @@
-"""The ``oisatgmi`` session API of the port: the fused month analysis.
+"""The ``oisatgmi`` session API of the port.
 
-Counterpart of :meth:`oisat_tpu.driver.oisatgmi.analyze_month_fused` for
-months of ``satellite_amf`` granules (AMF recalculation): the matched CTM
-slices are assembled on the host, the whole month runs as
-:func:`oisat_tpu_torch.parallel.analysis.full_month_step` on the granules'
-device, and every host-bound result comes back in one pull.  With
-``oi_method="full"`` the step skips its scalar OI and the full-covariance
-OI (:func:`oisat_tpu_torch.ops.oi_full.oi_full`) runs on the averaged
-fields, as the ``method == "full"`` branch of the JAX ``_oi_impl`` does.
-State attribute names match the JAX driver (and the reference).
+Counterpart of :class:`oisat_tpu.driver.oisatgmi` (reference
+oisatgmi/driver.py:17-227) without its file I/O: the staged path
+``recal_amf / conv_ak / cal_pwv -> average -> bias_correct -> oi ->
+savedaily`` and the fused month :meth:`oisatgmi.analyze_month_fused`, for
+``satellite_amf`` (AMF recalculation), ``satellite_opt`` (MOPITT / GOSAT
+averaging-kernel convolution; GOSAT assimilates the xcol pair) and
+``satellite_ssmis`` (precipitable water) granules.  State attribute names
+match the JAX driver (and the reference).
+
+Where the state lives.  The CTM fields are host numpy.  The gridded
+granules' fields are tensors on one device (the output of the port's
+regrid), and the observation operators keep their results there, on the
+granules.  ``average`` stacks the month in float64 on that device and pulls
+the five averaged fields once per month bucket; from then on the driver
+attributes (``sat_averaged_vcd`` ... ``error_OI``) are host numpy, as
+``analyze_month_fused`` sets them.  ``oi`` pushes the three fields it reads
+once, runs every pass (the Desroziers loop included) on the device and pulls
+its results once.  The fused month assembles on the host, runs as one month
+step of :mod:`oisat_tpu_torch.parallel.analysis` on the device and pulls
+every result in one copy.  The staged path's copies are counted in
+:data:`oisat_tpu_torch._device.COPIES`.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 
 import numpy as np
 import torch
 
-from oisat_tpu_torch.datamodel import satellite_amf
-from oisat_tpu_torch.ops.diagnostics import innovation_stats
+from oisat_tpu_torch._device import d2h, granule_device, h2d, size
+from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt, satellite_ssmis
+from oisat_tpu_torch.obs_operators import (
+    _amf_one,
+    _ctm_times,
+    _daily_ctm_slice,
+    _match_daily,
+    _prepared,
+    _time_collapsed,
+    _water_partial_column,
+    ak_conv_gosat,
+    ak_conv_mopitt,
+    amf_recal,
+    pwv_calculator,
+)
+from oisat_tpu_torch.ops.averaging import averaging
+from oisat_tpu_torch.ops.diagnostics import (
+    desroziers_binned,
+    desroziers_estimates,
+    innovation_stats,
+    lat_band_index,
+)
+from oisat_tpu_torch.ops.oi import oi as oi_op
 from oisat_tpu_torch.ops.oi_full import oi_full
-from oisat_tpu_torch.ops.vertical import partial_column
-from oisat_tpu_torch.parallel.analysis import FullMonthInputs, full_month_step
+from oisat_tpu_torch.ops.vertical import air_partial_column
+from oisat_tpu_torch.parallel.analysis import (
+    FullMonthInputs,
+    GosatMonthInputs,
+    MopittMonthInputs,
+    SsmisMonthInputs,
+    full_month_step,
+    gosat_month_step,
+    mopitt_month_step,
+    ssmis_month_step,
+)
 from oisat_tpu_torch.utils.stages import StageClock
 
 __all__ = ["oisatgmi", "BIAS_CORRECTIONS"]
@@ -38,49 +81,20 @@ BIAS_CORRECTIONS = {
     ("OMI", "HCHO"): (0.821, 0.79),
 }
 
+# CTM O3 columns convert to DU between averaging and OI (reference
+# driver.py:62-63)
+_O3_DU = 2.69e16 * 1e-15
 
-# -- CTM time matching (host; oisat_tpu.obs_operators, reference amf_recal.py:8-49)
-
-def _flatten_time(t):
-    return (t.year * 10000 + t.month * 100 + t.day + t.hour / 24.0
-            + t.minute / 60.0 / 24.0 + t.second / 3600.0 / 24.0)
-
-
-def _hour_only(t):
-    return t.hour / 24.0 + t.minute / 60.0 / 24.0 + t.second / 3600.0 / 24.0
+_KINDS = {satellite_amf: "amf", satellite_opt: "opt", satellite_ssmis: "ssmis"}
 
 
-def _ctm_times(ctm_data):
-    time_ctm, time_hour = [], []
-    for g in ctm_data:
-        for t in g.time:
-            time_ctm.append(_flatten_time(t))
-            time_hour.append(_hour_only(t))
-    return np.array(time_ctm), np.array(time_hour)
-
-
-def _match_amf(time_sat, ctm_data, time_ctm, time_hour):
-    """3-hourly day/hour matching (reference amf_recal.py:26-37):
-    (closest snapshot, day index, hour index)."""
-    if not ctm_data[0].averaged:
-        closest = int(np.argmin(np.abs(_flatten_time(time_sat) - time_ctm)))
-        return closest, int(np.floor(closest / 8.0)), int(closest % 8)
-    closest = int(np.argmin(np.abs(_hour_only(time_sat) - time_hour)))
-    return closest, 0, int(closest)
-
-
-def _amf_ctm_slice(ctm_data, day, hour):
-    """(pmid, profile, dp) at the matched time (reference amf_recal.py:39-49)."""
-    g = ctm_data[day]
-    if g.ctmtype == "FREE":
-        return (np.squeeze(g.pressure_mid), np.squeeze(g.gas_profile),
-                np.squeeze(g.delta_p))
-    return (np.squeeze(g.pressure_mid[hour]), np.squeeze(g.gas_profile[hour]),
-            np.squeeze(g.delta_p[hour]))
-
-
-def _size(x) -> int:
-    return x.numel() if torch.is_tensor(x) else int(np.size(x))
+def _scalar_plane(scalars, hw, device):
+    """A NaN (H, W) float64 plane whose first entries are ``scalars``."""
+    pad = torch.full((hw[0] * hw[1],), float("nan"), dtype=torch.float64, device=device)
+    if scalars:
+        pad[: len(scalars)] = torch.stack([torch.as_tensor(v, device=device)
+                                           .to(torch.float64) for v in scalars])
+    return pad.reshape(tuple(hw))
 
 
 def _pack_month_pull(out, with_oi: bool) -> np.ndarray:
@@ -89,103 +103,407 @@ def _pack_month_pull(out, with_oi: bool) -> np.ndarray:
     plane whose first entries are reg_factor and the innovation statistics
     (NaN-padded; all NaN without the OI).  One device->host copy."""
     fields = [out.sat_vcd, out.sat_error, out.ctm_vcd, out.aux1, out.aux2]
-    dt = torch.float64
-    hw = fields[0].shape
-    pad = torch.full((hw[0] * hw[1],), float("nan"), dtype=dt, device=fields[0].device)
+    scalars = []
     if with_oi:
         fields += [out.oi.xb, out.oi.averaging_kernel, out.oi.increment, out.oi.error]
-        scal = torch.stack([out.oi.reg_factor.to(dt)]
-                           + [torch.as_tensor(v).to(dt) for v in out.innovation])
-        pad[: scal.numel()] = scal
-    return torch.stack([f.to(dt) for f in fields] + [pad.reshape(hw)]).cpu().numpy()
+        scalars = [out.oi.reg_factor, *out.innovation]
+    plane = _scalar_plane(scalars, fields[0].shape, fields[0].device)
+    return torch.stack([f.to(torch.float64) for f in fields] + [plane]).cpu().numpy()
+
+
+def _desroziers_step(xa, y_clip, xb, sa, so, bins, nb: int):
+    """One Desroziers (re-)estimation pass on tensors: (sa_step, so_step)
+    scale factors, 0-d for the global estimator (``bins`` None), per-cell
+    maps for the binned one.  Cells labelled -1 ("no band": a non-finite
+    latitude) keep scale 1."""
+    if bins is None:
+        est = desroziers_estimates(xa, y_clip, xb, sa, so)
+        return est.sa_scale, est.so_scale
+    est = desroziers_binned(xa, y_clip, xb, sa, so, bins, nb)
+    safe = bins.clamp(0, nb - 1).long()
+
+    def bcast(scale):
+        s = scale.to(torch.float64)[safe]
+        return torch.where(bins >= 0, s, torch.ones_like(s))
+
+    return bcast(est.sa_scale), bcast(est.so_scale)
+
+
+def _desroziers_diag(nb, binned: bool, sa_total, so_total, iterations):
+    """The oi_diagnostics entries of a Desroziers sweep (host numpy totals;
+    the per-bin scale spread is added when binned)."""
+    d = {"desroziers_sa_scale": float(np.nanmean(sa_total)),
+         "desroziers_so_scale": float(np.nanmean(so_total)),
+         "desroziers_iterations": int(iterations)}
+    if binned:
+        d.update({"desroziers_bins": nb,
+                  "desroziers_sa_scale_min": float(np.nanmin(sa_total)),
+                  "desroziers_sa_scale_max": float(np.nanmax(sa_total)),
+                  "desroziers_so_scale_min": float(np.nanmin(so_total)),
+                  "desroziers_so_scale_max": float(np.nanmax(so_total))})
+    return d
+
+
+def _clip_negative(y64: np.ndarray) -> np.ndarray:
+    return np.where(y64 < 0, 0.0, y64)
 
 
 class oisatgmi:
     """One analysis session (one sensor, one gas, one month).
 
-    Set ``reader_obj`` (``ctm_data``: list of ctm_model, ``sat_data``: list of
-    regridded satellite_amf granules on one device) before calling
-    :meth:`analyze_month_fused`."""
+    Set ``reader_obj`` (``ctm_data``: list of ctm_model with host numpy
+    leaves, ``sat_data``: list of regridded granules whose fields are tensors
+    on one device, None for a skipped file) before calling the staged methods
+    or :meth:`analyze_month_fused`.  With a ``stage_ms`` dict every staged
+    method adds its wall milliseconds (the device synchronised at its end)
+    under its own name."""
 
+    def __init__(self, stage_ms: dict | None = None) -> None:
+        self.stage_ms = stage_ms
+
+    def _device(self) -> torch.device:
+        return granule_device(self.reader_obj.sat_data[self._first_valid()])
+
+    def _clock(self) -> StageClock:
+        out = self.stage_ms
+        return StageClock(out, self._device() if out is not None else "cpu")
+
+    def _oi_pair(self, sensor):
+        """(prior, observation) the OI runs on: GOSAT assimilates the xcol
+        pair instead of the VCD pair (reference driver.py:112-114)."""
+        if sensor == "GOSAT":
+            return self.aux2, self.aux1
+        return self.ctm_averaged_vcd, self.sat_averaged_vcd
+
+    # -- file I/O (reference driver.py:22-34, :116-227): not ported yet ------
+    def _not_ported(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the port has no file readers, writers or report yet (ROADMAP queue 1 "
+            "item 8): set reader_obj from regridded granules and read the results "
+            "from the session's attributes")
+
+    read_data = write_to_nc = reporting = save_state = load_state = _not_ported
+
+    # -- observation operators (reference driver.py:36-51) -------------------
+    def recal_amf(self):
+        clock = self._clock()
+        self.reader_obj.sat_data = amf_recal(self.reader_obj.ctm_data,
+                                             self.reader_obj.sat_data)
+        clock.mark("recal_amf")
+
+    def cal_pwv(self):
+        clock = self._clock()
+        self.reader_obj.sat_data = pwv_calculator(self.reader_obj.ctm_data,
+                                                  self.reader_obj.sat_data)
+        clock.mark("cal_pwv")
+
+    def conv_ak(self, sensor: str):
+        clock = self._clock()
+        if sensor == "MOPITT":
+            self.reader_obj.sat_data = ak_conv_mopitt(self.reader_obj.ctm_data,
+                                                      self.reader_obj.sat_data)
+        if sensor == "GOSAT":
+            self.reader_obj.sat_data = ak_conv_gosat(self.reader_obj.ctm_data,
+                                                     self.reader_obj.sat_data)
+        clock.mark("conv_ak")
+
+    # -- analysis (reference driver.py:53-114) -------------------------------
+    def average(self, startdate: str, enddate: str, gasname=None, weighting=None):
+        """Monthly averaging.  ``weighting``: None (the reference's plain
+        mean), "inverse_variance" (granules weighted by 1/sigma^2) or "ak"
+        (by averaging-kernel information content; MOPITT / GOSAT)."""
+        clock = self._clock()
+        self._average_impl(startdate, enddate, gasname, weighting)
+        clock.mark("average")
+
+    def _average_impl(self, startdate, enddate, gasname, weighting=None):
+        (self.sat_averaged_vcd, self.sat_averaged_error, self.ctm_averaged_vcd,
+         self.aux1, self.aux2, self.avg_time) = averaging(startdate, enddate,
+                                                          self.reader_obj,
+                                                          weighting=weighting)
+        if gasname == "O3":
+            self.ctm_averaged_vcd = self.ctm_averaged_vcd / _O3_DU
+
+    def bias_correct(self, sat_type, gasname):
+        clock = self._clock()
+        key = (sat_type, gasname)
+        if key in BIAS_CORRECTIONS:
+            print(f"applying the bias correction for {sat_type} {gasname}")
+            offset, slope = BIAS_CORRECTIONS[key]
+            self.sat_averaged_vcd = (self.sat_averaged_vcd - offset) / slope
+        else:
+            print("NOT applying the bias correction for satellite VCDs")
+        clock.mark("bias_correct")
+
+    def oi(self, sensor: str, error_ctm=50.0, method="scalar", length_scale_km=300.0,
+           desroziers_iterations=0, desroziers_bins=1, curve_impl="auto",
+           cov_impl="auto"):
+        """The analysis update on the averaged fields.
+
+        ``method="scalar"`` is the reference's per-cell update with the
+        99-factor regularization scan; ``method="full"`` the distance-decay
+        background covariance with ``length_scale_km``
+        (:func:`oisat_tpu_torch.ops.oi_full.oi_full`).  GOSAT assimilates
+        the xcol pair (``aux2``, ``aux1``) instead of the VCD pair.
+
+        ``desroziers_iterations``: re-estimate the So / Sa error variances
+        from the innovation / residual cross-moments (Desroziers 2005) and
+        re-run the update that many times; the diagnosed scales land in
+        ``oi_diagnostics``.  ``desroziers_bins`` > 1 estimates them per
+        latitude band: the per-cell scale maps are then kept as
+        ``desroziers_sa_scale_map`` / ``desroziers_so_scale_map``.
+        ``curve_impl`` / ``cov_impl`` pick the scalar OI's curve engine and
+        the full OI's covariance engine."""
+        clock = self._clock()
+        self._oi_impl(sensor, error_ctm, method, length_scale_km,
+                      desroziers_iterations, desroziers_bins, curve_impl, cov_impl)
+        clock.mark("oi")
+
+    def _oi_impl(self, sensor, error_ctm, method="scalar", length_scale_km=300.0,
+                 desroziers_iterations=0, desroziers_bins=1, curve_impl="auto",
+                 cov_impl="auto", clock=None):
+        if method not in ("scalar", "full"):
+            raise ValueError(f"method must be 'scalar' or 'full', got {method!r}")
+        # a previous run's binned scale maps must not outlive it on this object
+        self.desroziers_sa_scale_map = None
+        self.desroziers_so_scale_map = None
+        nb = int(desroziers_bins)
+        iterations = int(desroziers_iterations)
+        sat = self.reader_obj.sat_data[self._first_valid()]
+        bins = lat_band_index(sat.latitude_center, nb) if iterations and nb > 1 else None
+        device = self._device()
+        if method == "full":
+            self._oi_full(sensor, error_ctm, length_scale_km, iterations, nb, bins,
+                          device, cov_impl, clock)
+        else:
+            self._oi_scalar(sensor, error_ctm, iterations, nb, bins, device, curve_impl)
+
+    def _oi_scalar(self, sensor, error_ctm, iterations, nb, bins, device, curve_impl):
+        """The scalar OI with its Desroziers loop on ``device``: one push of
+        (xa, y, sigma_o), one pull of the four fields, the scale maps when
+        binned, and a plane of scalars."""
+        xa, y = self._oi_pair(sensor)
+        xa, y, err = h2d(np.stack([np.asarray(xa), np.asarray(y),
+                                   np.asarray(self.sat_averaged_error)]), device)
+        sa = (xa * error_ctm / 100.0) ** 2
+        so = err**2
+        res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
+        # every moment sees the innovation the OI assimilated (its y < 0 -> 0)
+        y_clip = torch.where(y < 0, torch.zeros_like(y), y)
+        totals = []
+        if iterations:
+            bins_t = None if bins is None else h2d(bins, device)
+            one = torch.ones((), dtype=torch.float64, device=device)
+            sa_total = one if bins is None else torch.ones_like(xa, dtype=torch.float64)
+            so_total = sa_total
+            for _ in range(iterations):
+                sa_step, so_step = _desroziers_step(xa, y_clip, res.xb, sa, so, bins_t, nb)
+                sa, so = sa * sa_step, so * so_step
+                sa_total, so_total = sa_total * sa_step, so_total * so_step
+                res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
+            totals = [sa_total, so_total]
+        st = innovation_stats(xa, y_clip, res.xb, sa, so)
+        fields = [res.xb, res.averaging_kernel, res.increment, res.error]
+        scalars = [res.reg_factor, *st]
+        if bins is None:
+            scalars += totals
+        else:
+            fields += totals
+        plane = _scalar_plane(scalars, xa.shape, device)
+        packed = d2h(torch.stack([f.to(torch.float64) for f in fields] + [plane]))
+        (self.ctm_averaged_vcd_corrected, self.ak_OI, self.increment_OI,
+         self.error_OI) = (p.copy() for p in packed[:4])
+        scal = packed[-1].ravel()
+        names = type(st)._fields
+        self.oi_diagnostics = {k: float(v) for k, v in zip(names, scal[1:1 + len(names)])}
+        if iterations:
+            if bins is None:
+                sa_np, so_np = scal[1 + len(names)], scal[2 + len(names)]
+            else:
+                sa_np, so_np = packed[4].copy(), packed[5].copy()
+                self.desroziers_sa_scale_map = sa_np
+                self.desroziers_so_scale_map = so_np
+            self.oi_diagnostics.update(_desroziers_diag(nb, bins is not None, sa_np,
+                                                        so_np, iterations))
+            print(f"Desroziers re-estimation ({nb} bin(s)): "
+                  f"Sa x{float(np.nanmean(sa_np)):.3g}, So x{float(np.nanmean(so_np)):.3g}")
+        print("The regularization factor is " + str(float(scal[0])))
+        d = self.oi_diagnostics
+        print(f"OI diagnostics: n={int(d['n'])} OmB={d['omb_mean']:+.3g}/{d['omb_rms']:.3g} "
+              f"OmA={d['oma_mean']:+.3g}/{d['oma_rms']:.3g} chi2={d['chi2']:.3g}")
+
+    def _first_valid(self):
+        return next(i for i, s in enumerate(self.reader_obj.sat_data) if s is not None)
+
+    def full_oi_inputs(self, error_ctm=50.0, sensor=None):
+        """(xa, y, sigma_b, sigma_o, lat, lon): the fields the full OI takes
+        after the month's averaging -- sigma_b = xa * error_ctm / 100, sigma_o
+        the averaged observation error, the first valid granule's grid (GOSAT:
+        the xcol pair)."""
+        xa, y = self._oi_pair(sensor)
+        sat = self.reader_obj.sat_data[self._first_valid()]
+        return (xa, y, np.asarray(xa) * error_ctm / 100.0,
+                np.asarray(self.sat_averaged_error), sat.latitude_center,
+                sat.longitude_center)
+
+    def _oi_full(self, sensor, error_ctm, length_scale_km, iterations, nb, bins,
+                 device, cov_impl, clock=None):
+        """The ``method == "full"`` branch of the JAX ``_oi_impl``: the
+        full-covariance OI with the regularization scan, re-solved after
+        each Desroziers pass with the rescaled error standard deviations
+        (the moments are gain-agnostic); the innovation statistics on the
+        clamped y the OI assimilated, merged with the solver's info."""
+        clock = clock or StageClock(None, device)
+        xa, y, sigma_b, sigma_o, lat, lon = self.full_oi_inputs(error_ctm, sensor)
+
+        def solve():
+            return oi_full(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km,
+                           regularization_on=True, device=device, cov_impl=cov_impl,
+                           stage_ms=clock.out)
+
+        def t64(a):
+            return h2d(np.asarray(a, np.float64), device)
+
+        res = solve()
+        clock.mark("oi_full")
+        y_clip = _clip_negative(np.asarray(y, np.float64))
+        sa_total = so_total = 1.0
+        if bins is not None:
+            sa_total = np.ones_like(np.asarray(xa, np.float64))
+            so_total = np.ones_like(sa_total)
+        for _ in range(iterations):
+            sa_step, so_step = (d2h(s) for s in _desroziers_step(
+                t64(xa), t64(y_clip), t64(res.xb), t64(sigma_b) ** 2, t64(sigma_o) ** 2,
+                None if bins is None else h2d(bins, device), nb))
+            if bins is None:
+                sa_step, so_step = float(sa_step), float(so_step)
+            sigma_b = sigma_b * np.sqrt(sa_step)
+            sigma_o = sigma_o * np.sqrt(so_step)
+            sa_total = sa_total * sa_step
+            so_total = so_total * so_step
+            res = solve()
+            clock.mark("oi_full")
+        self.ctm_averaged_vcd_corrected = res.xb
+        self.ak_OI = res.averaging_kernel
+        self.increment_OI = res.increment
+        self.error_OI = res.error
+        st = innovation_stats(t64(xa), t64(y_clip), t64(res.xb), t64(sigma_b) ** 2,
+                              t64(sigma_o) ** 2)
+        # always rewritten: a previous run's dict must not leak into this one
+        self.oi_diagnostics = {k: float(v) for k, v in st._asdict().items()}
+        self.oi_diagnostics.update({k: v for k, v in (res.info or {}).items()
+                                    if v is not None})
+        if iterations:
+            self.oi_diagnostics.update(_desroziers_diag(nb, bins is not None, sa_total,
+                                                        so_total, iterations))
+            if bins is not None:
+                self.desroziers_sa_scale_map = sa_total
+                self.desroziers_so_scale_map = so_total
+        clock.mark("innovation_stats")
+
+    # -- the fused month ------------------------------------------------------
     def analyze_month_fused(self, sensor: str, gasname: str, startdate: str,
                             enddate: str, error_ctm=50.0, weighting=None,
-                            oi_method="scalar", length_scale_km=300.0,
-                            desroziers_iterations=0, curve_impl="auto",
-                            cov_impl="auto", stage_ms=None):
-        """The month analysis on the granules' device: AMF recalculation per
-        granule + monthly statistics + bias correction + OI + innovation
-        diagnostics.  Sets ``sat_averaged_vcd``, ``sat_averaged_error``,
-        ``ctm_averaged_vcd``, ``aux1``, ``aux2``, ``ctm_averaged_vcd_corrected``,
-        ``ak_OI``, ``increment_OI``, ``error_OI`` (numpy), ``avg_time`` and
-        ``oi_diagnostics``, and returns the device ``AnalysisOutputs``.
+                            save_daily=None, oi_method="scalar", length_scale_km=300.0,
+                            desroziers_iterations=0, desroziers_bins=1,
+                            curve_impl="auto", cov_impl="auto", stage_ms=None):
+        """The month analysis on the granules' device: the observation
+        operator per granule + monthly statistics + bias correction + OI +
+        innovation diagnostics, for months whose granules share one kind and
+        shape: satellite_amf (AMF recalculation), MOPITT / GOSAT (AK
+        convolution; GOSAT assimilates the xcol pair) and SSMIS (PWV).
+        Replaces ``recal_amf / conv_ak / cal_pwv -> average -> bias_correct
+        -> oi``.  O3 months apply the DU conversion in the step; months whose
+        CTM must be mapped onto the granule grid (``ctm_upscaled_needed``)
+        upscale the matched slices through the cached plans.
 
-        ``weighting``: None or "inverse_variance".  ``oi_method``: "scalar"
-        (the reference's per-cell update, in the step) or "full" (the
-        distance-decay covariance with ``length_scale_km``, run after the
-        step, whose ``oi`` slot then holds NaN placeholders with
-        ``reg_index`` -1 and whose scaling factor is all ones: read the
-        attributes for the OI results).  ``curve_impl`` / ``cov_impl`` pick
-        the scalar OI's curve engine and the full OI's covariance engine
-        (see :func:`oisat_tpu_torch.ops.oi.oi`,
-        :func:`oisat_tpu_torch.ops.oi_full.oi_full`).  With a ``stage_ms``
-        dict, the wall milliseconds of the stages "assemble" (host CTM
-        matching and H2D), "step", "pull", and on full months "oi_full" (split
-        further under "oi_full.<stage>") and "innovation_stats" are added to
-        it; the unprefixed ones sum to the call's wall time.
-        Raises ValueError for an unfusable month (no granules, no scattering
-        weights, mixed shapes) and NotImplementedError for what the port
-        does not cover yet."""
+        Sets ``sat_averaged_vcd``, ``sat_averaged_error``,
+        ``ctm_averaged_vcd``, ``aux1``, ``aux2``,
+        ``ctm_averaged_vcd_corrected``, ``ak_OI``, ``increment_OI``,
+        ``error_OI`` (numpy), ``avg_time`` and ``oi_diagnostics``, and
+        returns the device ``AnalysisOutputs``.
+
+        ``weighting``: None, "inverse_variance" or (opt kinds) "ak".
+        ``save_daily=(folder, datestr)``: the per-granule operator outputs
+        come back in one copy and are written as the ``sat_data_*.mat``
+        files of :meth:`savedaily`.  ``oi_method`` "full" and
+        ``desroziers_iterations`` > 0 skip the step's scalar OI and run the
+        OI tail of :meth:`oi` on the averaged fields: the returned ``oi``
+        slot then holds NaN placeholders with ``reg_index`` -1 and a scaling
+        factor of ones, so read the attributes for the OI results.
+        ``curve_impl`` / ``cov_impl`` pick the scalar OI's curve engine and
+        the full OI's covariance engine.  With a ``stage_ms`` dict (the
+        session's own when None), the wall milliseconds of the stages
+        "assemble" (host CTM matching and H2D), "step", "pull", and on
+        tail months "oi_full" (split further under "oi_full.<stage>") and
+        "innovation_stats", or "oi_tail", are added to it; the unprefixed
+        ones sum to the call's wall time.
+        Raises ValueError for an unfusable month (no granules, mixed kinds
+        or shapes, no scattering weights, "ak" weights without averaging
+        kernels)."""
         if oi_method not in ("scalar", "full"):
             raise ValueError(f"oi_method must be 'scalar' or 'full', got {oi_method!r}")
-        if int(desroziers_iterations) > 0:
-            raise NotImplementedError("Desroziers re-estimation is not ported yet: "
-                                      "ROADMAP queue 1 item 11")
         ctm_data = self.reader_obj.ctm_data
         start = datetime.date(int(startdate[0:4]), int(startdate[5:7]), int(startdate[8:10]))
         end = datetime.date(int(enddate[0:4]), int(enddate[5:7]), int(enddate[8:10]))
-        grans = [g for g in self.reader_obj.sat_data
+        # each granule keeps its position in sat_data: the daily files are
+        # named by that counter, as in the staged walk
+        pairs = [(i, g) for i, g in enumerate(self.reader_obj.sat_data)
                  if g is not None and start <= g.time.date() < end]
+        grans = [g for _, g in pairs]
         if not grans:
             raise ValueError("no valid satellite granules to fuse")
-        if not all(isinstance(g, satellite_amf) for g in grans):
-            raise NotImplementedError("the port's fused month takes satellite_amf "
-                                      "granules only: ROADMAP queue 1 item 9")
-        if any(_size(g.scattering_weights) == 1 for g in grans):
-            raise ValueError("fused month path needs scattering weights")
-        shapes = {(tuple(g.vcd.shape), tuple(g.pressure_mid.shape)) for g in grans}
+        kind = _KINDS.get(type(grans[0]))
+        if kind is None or not all(type(g) is type(grans[0]) for g in grans):
+            raise ValueError("fused month path needs one granule kind")
+        if kind == "amf":
+            if any(size(g.scattering_weights) == 1 for g in grans):
+                raise ValueError("fused month path needs scattering weights")
+            shapes = {(tuple(g.vcd.shape), tuple(g.pressure_mid.shape)) for g in grans}
+        else:
+            shapes = {tuple(g.vcd.shape) for g in grans}
         if len(shapes) != 1:
             raise ValueError(f"fused month path needs one granule shape, got {shapes}")
-        if any(g.ctm_upscaled_needed for g in grans):
-            raise NotImplementedError("months whose CTM must be upscaled onto the "
-                                      "granule grid are not ported yet: ROADMAP queue 1 item 8")
+        if weighting == "ak" and kind != "opt":
+            raise ValueError("weighting='ak' needs averaging-kernel granules "
+                             "(MOPITT/GOSAT); use 'inverse_variance' otherwise")
         offset, slope = BIAS_CORRECTIONS.get((sensor, gasname), (0.0, 1.0))
         if (sensor, gasname) in BIAS_CORRECTIONS:
             print(f"applying the bias correction for {sensor} {gasname}")
-        # CTM O3 columns convert to DU between averaging and OI (reference
-        # driver.py:62-63)
-        ctm_scale = 1.0 / (2.69e16 * 1e-15) if gasname == "O3" else 1.0
+        ctm_scale = 1.0 / _O3_DU if gasname == "O3" else 1.0
 
-        full = oi_method == "full"
-        clock = StageClock(stage_ms, grans[0].vcd.device)
-        inputs = self._fused_inputs(ctm_data, grans)
+        # full-covariance and Desroziers months run the OI tail afterwards
+        oi_tail = oi_method == "full" or int(desroziers_iterations) > 0
+        clock = StageClock(stage_ms if stage_ms is not None
+                           else self.stage_ms, granule_device(grans[0]))
+        inputs, step = self._fused_inputs(kind, sensor, ctm_data, grans)
         clock.mark("assemble")
-        out = full_month_step(inputs, bias_offset=offset, bias_slope=slope,
-                              error_ctm=float(error_ctm), ctm_scale=float(ctm_scale),
-                              weighting=weighting, curve_impl=curve_impl,
-                              run_oi=not full)
+        out = step(inputs, bias_offset=offset, bias_slope=slope,
+                   error_ctm=float(error_ctm), ctm_scale=float(ctm_scale),
+                   weighting=weighting, curve_impl=curve_impl,
+                   return_granules=save_daily is not None, run_oi=not oi_tail)
         del inputs
         clock.mark("step")
+        if save_daily is not None:
+            out, daily = out
+            self._write_daily_mats(save_daily[0], gasname, pairs, daily)
+            del daily
 
-        packed = _pack_month_pull(out, not full)
+        packed = _pack_month_pull(out, not oi_tail)
         (self.sat_averaged_vcd, self.sat_averaged_error, self.ctm_averaged_vcd,
          self.aux1, self.aux2) = (p.copy() for p in packed[:5])
         avg_ts = sum(g.time.timestamp() for g in grans) / len(grans)
         self.avg_time = datetime.datetime.fromtimestamp(avg_ts)
         clock.mark("pull")
-        if full:
-            self._oi_full(error_ctm, length_scale_km, grans[0].vcd.device, cov_impl,
+        if oi_tail:
+            self._oi_impl(sensor, error_ctm, oi_method, length_scale_km,
+                          desroziers_iterations, desroziers_bins, curve_impl, cov_impl,
                           clock)
+            if oi_method != "full":
+                clock.mark("oi_tail")
             return out
+        self.desroziers_sa_scale_map = None
+        self.desroziers_so_scale_map = None
         (self.ctm_averaged_vcd_corrected, self.ak_OI, self.increment_OI,
          self.error_OI) = (p.copy() for p in packed[5:9])
         scal = packed[-1].ravel()
@@ -194,76 +512,109 @@ class oisatgmi:
         self.oi_diagnostics = {k: float(v) for k, v in zip(names, scal[1:1 + len(names)])}
         return out
 
-    def _first_valid(self):
-        return next(i for i, s in enumerate(self.reader_obj.sat_data) if s is not None)
+    @staticmethod
+    def _fused_inputs(kind: str, sensor: str, ctm_data, grans):
+        """(stacked month inputs, month step) for one granule kind on the
+        granules' device, with the per-granule CTM matching and slicing of
+        the staged operators (:mod:`oisat_tpu_torch.obs_operators`): each
+        distinct matched slice is prepared once and gathered per granule."""
+        device = granule_device(grans[0])
+        time_ctm, time_hour = _ctm_times(ctm_data)
+        cache: dict = {}
 
-    def full_oi_inputs(self, error_ctm=50.0):
-        """(xa, y, sigma_b, sigma_o, lat, lon): the fields the full OI takes
-        after the month's averaging -- sigma_b = xa * error_ctm / 100, sigma_o
-        the averaged observation error, the first valid granule's grid."""
-        xa, y = self.ctm_averaged_vcd, self.sat_averaged_vcd
-        sat = self.reader_obj.sat_data[self._first_valid()]
-        return (xa, y, np.asarray(xa) * error_ctm / 100.0,
-                np.asarray(self.sat_averaged_error), sat.latitude_center,
-                sat.longitude_center)
+        def stack(name):
+            return torch.stack([getattr(g, name) for g in grans])
 
-    def _oi_full(self, error_ctm, length_scale_km, device, cov_impl, clock=None):
-        """The ``method == "full"`` branch of the JAX ``_oi_impl`` (without
-        Desroziers): the full-covariance OI with the regularization scan on
-        :meth:`full_oi_inputs`; the innovation statistics on the clamped y
-        the OI assimilated, merged with the solver's info."""
-        clock = clock or StageClock(None, device)
-        xa, y, sigma_b, sigma_o, lat, lon = self.full_oi_inputs(error_ctm)
-        res = oi_full(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km,
-                      regularization_on=True, device=device, cov_impl=cov_impl,
-                      stage_ms=clock.out)
-        clock.mark("oi_full")
-        self.ctm_averaged_vcd_corrected = res.xb
-        self.ak_OI = res.averaging_kernel
-        self.increment_OI = res.increment
-        self.error_OI = res.error
-        y_clip = np.where(np.asarray(y, np.float64) < 0, 0.0, np.asarray(y, np.float64))
+        if kind == "amf":
+            items = [_amf_one(ctm_data, g, time_ctm, time_hour, device, cache)
+                     for g in grans]
+            return FullMonthInputs(
+                sat_pmid=stack("pressure_mid"), sat_sw=stack("scattering_weights"),
+                vcd=stack("vcd"), amf=stack("amf"), uncertainty=stack("uncertainty"),
+                tropopause=torch.stack([it[3] for it in items]),
+                ctm_pmid=torch.stack([it[1] for it in items]),
+                ctm_pc=torch.stack([it[2] for it in items])), full_month_step
 
-        def t64(a):
-            return torch.as_tensor(np.asarray(a, np.float64), device=device)
+        def daily(host_fields):
+            """Each granule's prepared daily CTM slice: a list of tuples."""
+            out = []
+            for g in grans:
+                _, day = _match_daily(g.time, ctm_data, time_ctm)
+                out.append(_prepared(cache, ctm_data, g, day, device,
+                                     lambda day=day: host_fields(day)))
+            return out
 
-        st = innovation_stats(t64(xa), t64(y_clip), t64(res.xb), t64(sigma_b) ** 2,
-                              t64(sigma_o) ** 2)
-        self.oi_diagnostics = {k: float(v) for k, v in st._asdict().items()}
-        self.oi_diagnostics.update({k: v for k, v in (res.info or {}).items()
-                                    if v is not None})
-        clock.mark("innovation_stats")
+        if kind == "ssmis":
+            pcw = daily(lambda day: [_water_partial_column(ctm_data, day)])
+            return SsmisMonthInputs(
+                water_pc=torch.stack([p[0] for p in pcw]), vcd=stack("vcd"),
+                uncertainty=stack("uncertainty")), ssmis_month_step
+
+        # opt sensors: MOPITT (VCD OI) vs GOSAT (xcol-pair OI)
+        if sensor == "GOSAT":
+            slices = daily(lambda day: list(_time_collapsed(
+                ctm_data[day], ("pressure_mid", "gas_profile"))))
+            return GosatMonthInputs(
+                ctm_pmid=torch.stack([s[0] for s in slices]),
+                ctm_profile=torch.stack([s[1] for s in slices]),
+                sat_pmid=stack("pressure_mid"), aks=stack("averaging_kernels"),
+                apriori_profile=stack("apriori_profile"),
+                pressure_weight=stack("pressure_weight"), vcd=stack("vcd"),
+                x_col=stack("x_col"), uncertainty=stack("uncertainty")), gosat_month_step
+
+        def mopitt_fields(day):
+            pmid, prof, dp = _daily_ctm_slice(ctm_data, day)
+            return [pmid, prof, air_partial_column(np.asarray(dp, np.float64))]
+
+        slices = daily(mopitt_fields)
+        return MopittMonthInputs(
+            ctm_pmid=torch.stack([s[0] for s in slices]),
+            ctm_profile=torch.stack([s[1] for s in slices]),
+            ctm_airpc=torch.stack([s[2] for s in slices]),
+            sat_pmid=stack("pressure_mid"), aks=stack("averaging_kernels"),
+            apriori_profile=stack("apriori_profile"), aprior_col=stack("aprior_column"),
+            apriori_surface=stack("apriori_surface"), vcd=stack("vcd"),
+            x_col=stack("x_col"), uncertainty=stack("uncertainty")), mopitt_month_step
+
+    # -- daily files (reference driver.py:127-146) ----------------------------
+    def _daily_latlon(self):
+        """CTM lat/lon for the daily files.  The reference's hazard is kept
+        (reference driver.py:140-142): the first-valid *satellite* index
+        addresses the CTM list, so when the first ``len(ctm_data)`` granules
+        of the month are all None this raises IndexError, as the reference
+        does."""
+        c = self.reader_obj.ctm_data[self._first_valid()]
+        return c.latitude, c.longitude
 
     @staticmethod
-    def _fused_inputs(ctm_data, grans) -> FullMonthInputs:
-        """Stack the month on the granules' device with each granule's
-        closest CTM snapshot (as oisat_tpu.driver._fused_inputs does for AMF
-        granules in full-precision mode: the partial columns are computed in
-        float64 on the host and stay float64).  Each distinct snapshot is
-        moved to the device once and gathered per granule there."""
-        device = grans[0].vcd.device
-        time_ctm, time_hour = _ctm_times(ctm_data)
-        slices: dict = {}
-        keys, trops = [], []
-        for g in grans:
-            closest, day, hour = _match_amf(g.time, ctm_data, time_ctm, time_hour)
-            if closest not in slices:
-                pmid, profile, dp = _amf_ctm_slice(ctm_data, day, hour)
-                pc = partial_column(np.asarray(dp, np.float64),
-                                    np.asarray(profile, np.float64))
-                slices[closest] = (torch.as_tensor(np.asarray(pmid), device=device),
-                                   torch.as_tensor(pc, device=device))
-            keys.append(closest)
-            # no-tropopause granules pass zeros: pmid < 0 never holds
-            trops.append(g.tropopause if _size(g.tropopause) != 1
-                         else torch.zeros_like(g.vcd))
-        return FullMonthInputs(
-            sat_pmid=torch.stack([g.pressure_mid for g in grans]),
-            sat_sw=torch.stack([g.scattering_weights for g in grans]),
-            vcd=torch.stack([g.vcd for g in grans]),
-            amf=torch.stack([g.amf for g in grans]),
-            uncertainty=torch.stack([g.uncertainty for g in grans]),
-            tropopause=torch.stack(trops),
-            ctm_pmid=torch.stack([slices[k][0] for k in keys]),
-            ctm_pc=torch.stack([slices[k][1] for k in keys]),
-        )
+    def _write_daily_mat(folder, gasname, counter, when, vcd, ctm_vcd, err, lat, lon):
+        """One reference-format daily file: the timestamp formula, the
+        ``sat_data_{gas}_{t}{counter}.mat`` name and the payload keys, shared
+        by :meth:`savedaily` and the fused month."""
+        from scipy.io import savemat
+
+        t = 10000.0 * when.year + 100.0 * when.month + when.day + when.hour / 24.0
+        savemat(os.path.join(folder, f"sat_data_{gasname}_{t}{counter}.mat"),
+                {"vcd_sat": vcd, "vcd_ctm": ctm_vcd, "vcd_err": err,
+                 "time_sat": t, "lat": lat, "lon": lon})
+
+    def _write_daily_mats(self, folder, gasname, pairs, daily):
+        """The per-granule ``sat_data_*.mat`` files from the fused month's
+        :class:`DailyGranules`: one device->host copy for the whole month,
+        the content and counter-based names of :meth:`savedaily`."""
+        os.makedirs(folder, exist_ok=True)
+        vcd, ctm, err = torch.stack([f.to(torch.float64) for f in daily]).cpu().numpy()
+        latitude, longitude = (np.asarray(a) for a in self._daily_latlon())
+        for (counter, g), v, c, e in zip(pairs, vcd, ctm, err):
+            self._write_daily_mat(folder, gasname, counter, g.time, v, c, e,
+                                  latitude, longitude)
+
+    def savedaily(self, folder, gasname, date):
+        os.makedirs(folder, exist_ok=True)
+        latitude, longitude = self._daily_latlon()
+        for counter, sat in enumerate(self.reader_obj.sat_data):
+            if sat is None:
+                continue
+            self._write_daily_mat(folder, gasname, counter, sat.time, d2h(sat.vcd),
+                                  d2h(sat.ctm_vcd), d2h(sat.uncertainty),
+                                  latitude, longitude)

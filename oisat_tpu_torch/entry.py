@@ -13,6 +13,12 @@
   CONUS window of that grid (:func:`conus_window`, 5,643 cells) in
   physical units, with observation errors in the production regime of the
   full-covariance OI (``oi_method="full"``).
+* :func:`synthetic_mopitt_month`, :func:`synthetic_gosat_month` and
+  :func:`synthetic_ssmis_month` build months of the other granule kinds at
+  their products' own widths (MOPITT CO daily L3 on its 1 degree grid with 9
+  retrieval levels and the 10-row averaging kernel; GOSAT XCH4 as sparse
+  20-level soundings; SSMIS water vapour as monthly 0.25 degree maps), each
+  with a 72-level CTM of its gas on the MERRA2-GMI grid.
 """
 
 from __future__ import annotations
@@ -22,11 +28,13 @@ import datetime
 import numpy as np
 
 from oisat_tpu_torch.convert import full_month_inputs
-from oisat_tpu_torch.datamodel import ctm_model, satellite_amf
+from oisat_tpu_torch.datamodel import ctm_model, satellite_amf, satellite_opt, satellite_ssmis
 from oisat_tpu_torch.parallel.analysis import FullMonthInputs, full_month_step
 
 __all__ = ["entry", "synthetic_full_month", "merra2_gmi_grid", "synthetic_orbit",
-           "synthetic_ctm", "synthetic_month", "conus_window", "synthetic_regional_month"]
+           "synthetic_ctm", "synthetic_month", "conus_window", "synthetic_regional_month",
+           "synthetic_mopitt_day", "synthetic_mopitt_month", "synthetic_gosat_day",
+           "synthetic_gosat_month", "synthetic_ssmis_map", "synthetic_ssmis_month"]
 
 # the CONUS analysis window: 24-52 N x 128-66 W
 CONUS = (24.0, 52.0, -128.0, -66.0)
@@ -108,11 +116,20 @@ def synthetic_orbit(seed, center_lon, ny=1644, nx=60, nz=35, day=1,
     )
 
 
-def synthetic_ctm(lon2d, lat2d, seed=0, nt=8, nz=72, dtype=np.float32):
+# (twice the surface mixing ratio, e-folding depth in levels) of the CTM
+# profile of each gas: ~0.2 ppbv of NO2 in the boundary layer (a few 1e15
+# molec/cm2), ~90 ppbv of CO and ~1800 ppbv of CH4 through the troposphere,
+# and a humidity whose column is ~25 in the unit the PWV operator sums to
+CTM_GASES = {"NO2": (0.4, 8.0), "CO": (180.0, 40.0), "CH4": (3600.0, 400.0),
+             "H2O": (8.0e6, 8.0)}
+
+
+def synthetic_ctm(lon2d, lat2d, seed=0, nt=8, nz=72, dtype=np.float32, gas="NO2"):
     """A GMI-like CTM month as its mean diurnal cycle on the given grid
-    (``averaged=True``: granules match a snapshot by hour of day): ``nt``
-    3-hourly snapshots of ``nz``-level NO2 profiles [ppbv], layer
-    thicknesses [hPa] and mid-level pressures on sigma-pressure levels
+    (``averaged=True``: granules match a snapshot by hour of day, or the
+    mean over the snapshots for the daily-matched sensors): ``nt`` 3-hourly
+    snapshots of ``nz``-level profiles of ``gas`` [ppbv] (``CTM_GASES``),
+    layer thicknesses [hPa] and mid-level pressures on sigma-pressure levels
     (hybrid-eta with A = 0) from the surface (~1000 hPa) to ~0.02 hPa."""
     rng = np.random.default_rng(seed)
     hw = lat2d.shape
@@ -120,9 +137,9 @@ def synthetic_ctm(lon2d, lat2d, seed=0, nt=8, nz=72, dtype=np.float32):
     psurf = 1000.0 + 30.0 * rng.standard_normal((nt,) + hw)
     pmid = sigma[None, :, None, None] * psurf[:, None]
     dp = np.abs(np.gradient(pmid, axis=1))
-    # ~0.5 ppbv NO2 concentrated in the boundary layer: a few 1e15 molec/cm2
-    shape = np.exp(-np.arange(nz) / 8.0)[None, :, None, None]
-    prof = 0.4 * shape * np.abs(rng.normal(0.5, 0.15, (nt, nz) + hw))
+    amplitude, depth = CTM_GASES[gas]
+    shape = np.exp(-np.arange(nz) / depth)[None, :, None, None]
+    prof = amplitude * shape * np.abs(rng.normal(0.5, 0.15, (nt, nz) + hw))
     times = [datetime.datetime(2019, 7, 15, 3 * h) for h in range(nt)]
     return ctm_model(lat2d, lon2d, times, prof.astype(dtype), pmid.astype(dtype), [],
                      dp.astype(dtype), "GMI", True)
@@ -176,3 +193,123 @@ def synthetic_regional_month(n_orbits=60, seed=0, ny=1644, nx=60, nz=35, nz_ctm=
                               error_mean=error_mean)
               for i, c in enumerate(centers)]
     return orbits, synthetic_ctm(lon2d, lat2d, seed=seed, nz=nz_ctm), lon2d, lat2d
+
+
+def _missing(lon, lat, phase, frac=0.2):
+    """A mask of the ``frac`` of the cells that lie in contiguous patches (the
+    gaps between swaths, land or ice of a gridded product), moved by
+    ``phase`` from one granule to the next."""
+    f = (np.sin(np.radians(lon) * 3.0 + phase)
+         * np.cos(np.radians(lat) * 2.5 + 0.5 * phase)).astype(np.float64)
+    return f > np.quantile(f, 1.0 - frac)
+
+
+def synthetic_mopitt_day(seed, day=1, nlev=9):
+    """One MOPITT-CO-shaped daily L3 granule (host numpy leaves) in the
+    layout its reader gives: the 1 x 1 degree global grid stored longitude
+    first (360 x 180), ``nlev`` fixed retrieval levels (900..100 hPa), the
+    (nlev + 1)-row total-column averaging kernel with the surface row first,
+    float32 columns / kernels / pressures and float64 a-priori mixing ratios,
+    ~20% missing cells in patches that move from day to day, a quality flag
+    of ones.  Columns are in 1e15
+    molec/cm2 (~2000), ``x_col`` in ppmv (~0.1)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    lon, lat = np.meshgrid(np.arange(-179.5, 180.0, 1.0, dtype=f32),
+                           np.arange(-89.5, 90.0, 1.0, dtype=f32))
+    lon, lat = lon.T, lat.T
+    hw = lat.shape
+    vcd = 2000.0 * (1.0 + 0.2 * np.sin(np.radians(lon) * 2.0) * np.cos(np.radians(lat)))
+    vcd = np.abs(vcd + 60.0 * rng.standard_normal(hw))
+    vcd[_missing(lon, lat, 0.7 * day)] = np.nan
+    levels = np.linspace(900.0, 100.0, nlev)
+    return satellite_opt(
+        vcd=vcd.astype(f32), time=datetime.datetime(2019, 7, day, 12), profile=[],
+        tropopause=np.empty((1,)), latitude_center=lat, longitude_center=lon,
+        latitude_corner=[], longitude_corner=[],
+        uncertainty=(0.07 * vcd * np.abs(rng.normal(1.0, 0.2, hw))).astype(f32),
+        quality_flag=np.ones(hw, f32),
+        pressure_mid=np.broadcast_to(levels[:, None, None], (nlev,) + hw).astype(f32).copy(),
+        averaging_kernels=np.abs(rng.normal(150.0, 50.0, (nlev + 1,) + hw)).astype(f32),
+        aprior_column=np.abs(rng.normal(2000.0, 100.0, hw)).astype(f32),
+        apriori_profile=np.abs(rng.normal(90.0, 12.0, (nlev,) + hw)),
+        surface_pressure=(1000.0 + 30.0 * rng.standard_normal(hw)).astype(f32),
+        apriori_surface=np.abs(rng.normal(100.0, 10.0, hw)),
+        x_col=(1e6 * vcd / 2.1e10).astype(f32), pressure_weight=[], sensor="MOPITT")
+
+
+def synthetic_mopitt_month(n_days=30, seed=0, nz_ctm=72):
+    """(granules, ctm, ctm_lon2d, ctm_lat2d) on the host: ``n_days`` daily
+    MOPITT-shaped granules of July 2019 and the ``nz_ctm``-level CO CTM on
+    the MERRA2-GMI grid."""
+    lon2d, lat2d = merra2_gmi_grid()
+    grans = [synthetic_mopitt_day(seed + 1 + d, day=1 + d) for d in range(n_days)]
+    return grans, synthetic_ctm(lon2d, lat2d, seed=seed, nz=nz_ctm, gas="CO"), lon2d, lat2d
+
+
+def synthetic_gosat_day(seed, day=1, n_points=3000, nlev=20):
+    """One day of GOSAT-XCH4-shaped soundings (host numpy leaves, points on
+    the last axis) in the layout its reader gives: ``n_points`` scattered
+    between 60 S and 75 N, ``nlev`` sigma levels from the surface up, float32
+    averaging kernels, pressure weights and a-priori profiles [ppbv], XCH4
+    ~1800 ppbv with a ~10 ppbv uncertainty, and a quality flag that rejects
+    ~10% of the soundings."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    lat = rng.uniform(-60.0, 75.0, n_points).astype(f32)
+    lon = rng.uniform(-180.0, 180.0, n_points).astype(f32)
+    xch4 = 1800.0 + 25.0 * np.sin(np.radians(lat)) + 8.0 * rng.standard_normal(n_points)
+    sigma = np.linspace(1.0, 0.01, nlev)[:, None]
+    psurf = 1000.0 + 30.0 * rng.standard_normal(n_points)
+    weight = np.abs(np.gradient(sigma[:, 0]))
+    return satellite_opt(
+        vcd=xch4, time=datetime.datetime(2019, 7, day, 12), profile=[],
+        tropopause=np.empty((1,)), latitude_center=lat, longitude_center=lon,
+        latitude_corner=[], longitude_corner=[],
+        uncertainty=np.abs(rng.normal(10.0, 2.0, n_points)),
+        quality_flag=(rng.random(n_points) > 0.1) * 1.0,
+        pressure_mid=sigma * psurf[None],
+        averaging_kernels=rng.uniform(0.3, 1.1, (nlev, n_points)).astype(f32),
+        aprior_column=np.zeros((1,)),
+        apriori_profile=(1800.0 * (0.85 + 0.15 * sigma)
+                         + 10.0 * rng.standard_normal((nlev, n_points))).astype(f32),
+        surface_pressure=np.zeros((1,)), apriori_surface=np.zeros((1,)), x_col=xch4,
+        pressure_weight=np.broadcast_to((weight / weight.sum())[:, None],
+                                        (nlev, n_points)).astype(f32).copy(),
+        sensor="GOSAT")
+
+
+def synthetic_gosat_month(n_days=30, seed=0, n_points=3000, nz_ctm=72):
+    """(soundings, ctm, ctm_lon2d, ctm_lat2d) on the host: ``n_days`` daily
+    sets of GOSAT-shaped soundings of July 2019 and the ``nz_ctm``-level CH4
+    CTM on the MERRA2-GMI grid."""
+    lon2d, lat2d = merra2_gmi_grid()
+    days = [synthetic_gosat_day(seed + 1 + d, day=1 + d, n_points=n_points)
+            for d in range(n_days)]
+    return days, synthetic_ctm(lon2d, lat2d, seed=seed, nz=nz_ctm, gas="CH4"), lon2d, lat2d
+
+
+def synthetic_ssmis_map(seed, pitch=0.25):
+    """One SSMIS-shaped monthly water-vapour map (host numpy leaves) in the
+    layout its reader gives: the ``pitch``-degree global grid (720 x 1440)
+    with longitudes wrapped into -180..180, float32 columns [mm] (wet
+    tropics, dry poles), ~20% missing cells in patches and the flat 5% error."""
+    rng = np.random.default_rng(seed)
+    lat1 = np.arange(-90.0 + pitch / 2, 90.0, pitch, dtype=np.float32)
+    lon1 = np.arange(pitch / 2, 360.0, pitch, dtype=np.float32)
+    lon, lat = np.meshgrid(np.where(lon1 > 180.0, lon1 - 360.0, lon1), lat1)
+    pwv = np.abs(5.0 + 40.0 * np.cos(np.radians(lat)) ** 2 + 3.0 * rng.standard_normal(lat.shape))
+    pwv[_missing(lon, lat, 2.1 * seed)] = np.nan
+    return satellite_ssmis(vcd=pwv.astype(np.float32), uncertainty=(pwv * 0.05).astype(np.float32),
+                           time=datetime.datetime(2019, 7, 1), latitude_center=lat,
+                           longitude_center=lon, ctm_upscaled_needed=False, ctm_vcd=[],
+                           sensor="SSMI")
+
+
+def synthetic_ssmis_month(n_sats=3, seed=0, nz_ctm=72):
+    """(maps, ctm, ctm_lon2d, ctm_lat2d) on the host: one monthly map per
+    satellite of the fleet and the ``nz_ctm``-level humidity CTM on the
+    MERRA2-GMI grid."""
+    lon2d, lat2d = merra2_gmi_grid()
+    maps = [synthetic_ssmis_map(seed + 1 + k) for k in range(n_sats)]
+    return maps, synthetic_ctm(lon2d, lat2d, seed=seed, nz=nz_ctm, gas="H2O"), lon2d, lat2d

@@ -10,7 +10,7 @@ The box filter reproduces scipy ``convolve2d(mode='same', boundary='symm')``
 ``1/(ky*kx)^2`` (reference ``_boxfilter2``).
 
 ``pad_to_bucket`` and plan compaction are TPU/tunnel workarounds and are not
-ported.
+ported: :func:`apply_plan` applies the plan to the batch as it is.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["apply_plan_arrays", "boxfilter_same_symm"]
+__all__ = ["apply_plan_arrays", "apply_plan", "boxfilter_same_symm"]
 
 
 def apply_plan_arrays(z: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -36,6 +36,14 @@ def apply_plan_arrays(z: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     for k in range(1, idx.shape[1]):
         out = out + z[..., idx[:, k]] * wz[:, k]
     return torch.where(mask, torch.full_like(out, math.nan), out)
+
+
+def apply_plan(plan, z: torch.Tensor) -> torch.Tensor:
+    """Apply a SparsePlan whose ``idx`` / ``w`` / ``mask`` are tensors on
+    ``z``'s device (:func:`oisat_tpu_torch.convert.plan_to_torch`) to ``z``
+    (..., Npix) -> (..., Ny, Nx)."""
+    out = apply_plan_arrays(z, plan.idx, plan.w, plan.mask)
+    return out.reshape(z.shape[:-1] + tuple(plan.out_shape))
 
 
 def _symmetric_index(n: int, lo: int, hi: int, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Vertical observation operators, batched over grid cells, on torch tensors.
 
 Counterpart of :mod:`oisat_tpu.ops.vertical` (reference
-oisatgmi/amf_recal.py:51-56, :93-119, :160-183): the per-pixel scipy
+oisatgmi/amf_recal.py:51-56, :93-119, :160-183, ak_conv_mopitt.py:118-146,
+ak_conv_gosat.py:118-141, pwv_cal.py:64-98): the per-pixel scipy
 ``interp1d`` loop becomes one column-wise log-pressure interpolation over the
 whole grid, and the level sums are NaN-masked reductions.
 
@@ -19,8 +20,9 @@ import math
 
 import torch
 
-__all__ = ["MAIR", "GRAV", "N_A", "partial_column", "interp_linear_batched",
-           "amf_recal_fields", "amf_recal_noak_fields"]
+__all__ = ["MAIR", "GRAV", "N_A", "partial_column", "air_partial_column",
+           "interp_linear_batched", "amf_recal_fields", "amf_recal_noak_fields",
+           "ak_conv_mopitt_fields", "ak_conv_gosat_fields", "pwv_fields"]
 
 MAIR = 28.97e-3
 GRAV = 9.80665
@@ -31,6 +33,12 @@ def partial_column(delta_p, profile_ppbv):
     """CTM gas partial column [1e15 molec/cm^2] from delta-p [hPa] and ppbv
     (numpy arrays or tensors; reference amf_recal.py:51-56)."""
     return delta_p * profile_ppbv / GRAV / MAIR * N_A * 1e-4 * 1e-15 * 100.0 * 1e-9
+
+
+def air_partial_column(delta_p):
+    """Air partial column [1e15 molec/cm^2] from delta-p [hPa] (numpy arrays
+    or tensors; reference ak_conv_mopitt.py:66)."""
+    return delta_p / GRAV / MAIR * N_A * 1e-4 * 1e-15 * 100.0
 
 
 def _nan_like(x):
@@ -122,3 +130,70 @@ def amf_recal_noak_fields(ctm_pmid, ctm_pc, tropopause, vcd, has_trop: bool):
         pc = torch.where(ctm_pmid < tropopause.unsqueeze(-3), _nan_like(pc), pc)
     model_vcd = _nansum_levels(pc)
     return torch.where(torch.isnan(vcd), _nan_like(model_vcd), model_vcd)
+
+
+def _at_least_f32(*tensors):
+    """float16 inputs computed in float32; float32 and float64 stay."""
+    return tuple(t.to(torch.float32) if t.dtype == torch.float16 else t for t in tensors)
+
+
+def _interp_levels(xp, fp, xq, extrapolate: bool):
+    """:func:`interp_linear_batched` for stacks whose level axis is -3."""
+    return interp_linear_batched(xp.movedim(-3, 0), fp.movedim(-3, 0), xq.movedim(-3, 0),
+                                 extrapolate).movedim(0, -3)
+
+
+def ak_conv_mopitt_fields(ctm_pmid, ctm_profile, ctm_airpc, sat_pmid, aks, aprior_col,
+                          apriori_profile, apriori_surface, vcd):
+    """MOPITT averaging-kernel convolution (reference ak_conv_mopitt.py:118-146).
+
+    ctm_pmid/ctm_profile/ctm_airpc: ([G,] Lc, H, W); sat_pmid/apriori_profile:
+    ([G,] Ls, H, W); aks: ([G,] Ls+1, H, W) with the surface row first;
+    aprior_col/apriori_surface/vcd: ([G,] H, W).  Returns (model_vcd,
+    model_xcol [ppmv]): ``model_vcd`` is NaN where ``vcd`` is NaN or inf,
+    ``model_xcol`` only where it is NaN, as in the reference."""
+    (ctm_pmid, ctm_profile, ctm_airpc, sat_pmid, aks,
+     apriori_profile) = _at_least_f32(ctm_pmid, ctm_profile, ctm_airpc, sat_pmid, aks,
+                                      apriori_profile)
+    prof_i = _interp_levels(torch.log(ctm_pmid), ctm_profile, torch.log(sat_pmid),
+                            extrapolate=False)
+    dlog = torch.log10(prof_i) - torch.log10(apriori_profile)
+    profile_component = aprior_col + _nansum_levels(aks[..., 1:, :, :] * dlog)
+    surface_component = aks[..., 0, :, :] * (torch.log10(ctm_profile[..., 0, :, :])
+                                             - torch.log10(apriori_surface))
+    model_vcd = profile_component + surface_component
+    model_xcol = 1e6 * model_vcd / _nansum_levels(ctm_airpc)
+    model_vcd = torch.where(torch.isnan(vcd) | torch.isinf(vcd), _nan_like(model_vcd),
+                            model_vcd)
+    model_xcol = torch.where(torch.isnan(vcd), _nan_like(model_xcol), model_xcol)
+    return model_vcd, model_xcol
+
+
+def ak_conv_gosat_fields(ctm_pmid, ctm_profile, sat_pmid, aks, apriori_profile,
+                         pressure_weight, x_col):
+    """GOSAT XCH4 averaging-kernel convolution (reference ak_conv_gosat.py:118-141).
+
+    ctm_pmid/ctm_profile: ([G,] Lc, H, W); sat_pmid/aks/apriori_profile/
+    pressure_weight: ([G,] Ls, H, W); x_col: ([G,] H, W).  Returns
+    model_xcol [ppbv], NaN where the retrieval ``x_col`` is NaN or inf; a
+    column whose every level is masked (``<= 0`` or NaN) sums to 0."""
+    (ctm_pmid, ctm_profile, sat_pmid, aks, apriori_profile,
+     pressure_weight) = _at_least_f32(ctm_pmid, ctm_profile, sat_pmid, aks,
+                                      apriori_profile, pressure_weight)
+    prof_i = _interp_levels(torch.log(ctm_pmid), ctm_profile, torch.log(sat_pmid),
+                            extrapolate=True)
+    temp = apriori_profile + (prof_i - apriori_profile) * aks
+    temp = temp * pressure_weight
+    temp = torch.where(temp <= 0, _nan_like(temp), temp)
+    model_xcol = _nansum_levels(temp)
+    return torch.where(torch.isinf(x_col) | torch.isnan(x_col), _nan_like(model_xcol),
+                       model_xcol)
+
+
+def pwv_fields(pc, vcd):
+    """Precipitable water vapor [mm] (reference pwv_cal.py:64-98): ``pc``
+    ([G,] Lc, H, W) is the water partial column ``dp * q / g / 1e4``;
+    PWV = nansum(pc / 1e3), NaN where the satellite ``vcd`` is NaN or inf."""
+    (pc,) = _at_least_f32(pc)
+    pwv = _nansum_levels(pc / 1000.0)
+    return torch.where(torch.isnan(vcd) | torch.isinf(vcd), _nan_like(pwv), pwv)

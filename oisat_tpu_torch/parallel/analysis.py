@@ -1,10 +1,13 @@
 """The end-to-end month analysis (operator -> averaging -> bias -> OI).
 
-Counterpart of :mod:`oisat_tpu.parallel.analysis` for one device:
-:func:`full_month_step` takes a month of stacked granule fields and the
-matched CTM slices and returns the whole analysis, the on-device compute of
-a reference month job for an AMF sensor.  No mesh, padding or jit caches:
-PyTorch runs the step eagerly on the tensors' device.
+Counterpart of :mod:`oisat_tpu.parallel.analysis` for one device: a month
+step takes a month of stacked granule fields and the matched CTM slices and
+returns the whole analysis, the on-device compute of a reference month job:
+:func:`full_month_step` for an AMF sensor, :func:`mopitt_month_step` and
+:func:`gosat_month_step` for the averaging-kernel sensors,
+:func:`ssmis_month_step` for SSMIS water vapour.  No mesh, padding or jit
+caches: PyTorch runs the step eagerly on the tensors' device.  The input
+tuples carry the dense fields only (no carrier-level tables).
 """
 
 from __future__ import annotations
@@ -14,16 +17,23 @@ from typing import NamedTuple
 
 import torch
 
-from oisat_tpu_torch.ops.averaging import monthly_stats, monthly_stats_weighted
+from oisat_tpu_torch.ops.averaging import monthly_stats, monthly_stats_weighted, nanmean
 from oisat_tpu_torch.ops.diagnostics import InnovationStats, innovation_stats
 from oisat_tpu_torch.ops.oi import OIResult, oi, regularization_grid
-from oisat_tpu_torch.ops.vertical import amf_recal_fields
+from oisat_tpu_torch.ops.vertical import (
+    ak_conv_gosat_fields,
+    ak_conv_mopitt_fields,
+    amf_recal_fields,
+    pwv_fields,
+)
 
-__all__ = ["AnalysisInputs", "AnalysisOutputs", "FullMonthInputs",
-           "analysis_step", "full_month_step"]
+__all__ = ["AnalysisInputs", "AnalysisOutputs", "DailyGranules", "FullMonthInputs",
+           "MopittMonthInputs", "GosatMonthInputs", "SsmisMonthInputs",
+           "analysis_step", "full_month_step", "mopitt_month_step",
+           "gosat_month_step", "ssmis_month_step", "over_granule_chunks"]
 
-# Cell-levels of one AMF-recal chunk.  The interpolation holds a few
-# (chunk, H, W, Lc) temporaries (int64 brackets + four gathers); a whole
+# Cell-levels of one chunk of a vertical operator.  The interpolation holds a
+# few (chunk, H, W, Lc) temporaries (int64 brackets + four gathers); a whole
 # 60-orbit month on the 0.5x0.625 deg global grid is 60 * 207,936 * 72 ~ 9e8
 # cell-levels, so the granule axis is processed in chunks of at most this
 # many (~8 granules there), bounding the temporaries to a few GB.
@@ -52,6 +62,17 @@ class AnalysisOutputs(NamedTuple):
     innovation: InnovationStats
 
 
+class DailyGranules(NamedTuple):
+    """Per-granule operator outputs (G, H, W), returned by the month steps
+    with ``return_granules=True``: the fields the driver's daily files hold
+    (reference driver.py:127-146): the post-operator satellite VCD, the
+    matched model VCD and the retrieval error."""
+
+    vcd: torch.Tensor
+    ctm_vcd: torch.Tensor
+    uncertainty: torch.Tensor
+
+
 class FullMonthInputs(NamedTuple):
     """A whole month of gridded granules + the matched CTM slices; every
     field carries a leading granule axis G."""
@@ -66,13 +87,54 @@ class FullMonthInputs(NamedTuple):
     ctm_pc: torch.Tensor  # (G, Lc, H, W)
 
 
-def _granule_weights_traced(weighting, uncertainty):
+class MopittMonthInputs(NamedTuple):
+    """A month of gridded MOPITT granules + the matched daily CTM slices
+    (reference ak_conv_mopitt.py:8-149 at month scale)."""
+
+    ctm_pmid: torch.Tensor  # (G, Lc, H, W)
+    ctm_profile: torch.Tensor  # (G, Lc, H, W)
+    ctm_airpc: torch.Tensor  # (G, Lc, H, W)
+    sat_pmid: torch.Tensor  # (G, Ls, H, W)
+    aks: torch.Tensor  # (G, Ls+1, H, W)  surface row first
+    apriori_profile: torch.Tensor  # (G, Ls, H, W)
+    aprior_col: torch.Tensor  # (G, H, W)
+    apriori_surface: torch.Tensor  # (G, H, W)
+    vcd: torch.Tensor  # (G, H, W)
+    x_col: torch.Tensor  # (G, H, W)
+    uncertainty: torch.Tensor  # (G, H, W)
+
+
+class GosatMonthInputs(NamedTuple):
+    """A month of gridded GOSAT granules + the matched daily CTM slices.  The
+    OI runs on the XCH4 pair (reference driver.py:112-114)."""
+
+    ctm_pmid: torch.Tensor  # (G, Lc, H, W)
+    ctm_profile: torch.Tensor  # (G, Lc, H, W)
+    sat_pmid: torch.Tensor  # (G, Ls, H, W)
+    aks: torch.Tensor  # (G, Ls, H, W)
+    apriori_profile: torch.Tensor  # (G, Ls, H, W)
+    pressure_weight: torch.Tensor  # (G, Ls, H, W)
+    vcd: torch.Tensor  # (G, H, W)
+    x_col: torch.Tensor  # (G, H, W)
+    uncertainty: torch.Tensor  # (G, H, W)
+
+
+class SsmisMonthInputs(NamedTuple):
+    """A month of gridded SSMIS granules + the matched water partial columns
+    (reference pwv_cal.py:7-101 at month scale)."""
+
+    water_pc: torch.Tensor  # (G, Lc, H, W)  dp*q/g/1e4 on the analysis grid
+    vcd: torch.Tensor  # (G, H, W)
+    uncertainty: torch.Tensor  # (G, H, W)
+
+
+def _granule_weights_traced(weighting, uncertainty, aks=None):
     """Per-granule per-cell weights from the stacked month: the formulas of
     :func:`oisat_tpu.parallel.analysis._granule_weights_traced`.
 
     "inverse_variance": w = 1/sigma^2 where sigma > 0, else NaN (excluded).
-    "ak" needs averaging-kernel granules, which the port does not carry yet
-    (ROADMAP queue 1 item 9)."""
+    "ak": the vertical nanmean of |averaging kernels| (G, L, H, W), for the
+    averaging-kernel sensors only."""
     if weighting is None:
         return None
     if weighting == "inverse_variance":
@@ -80,16 +142,21 @@ def _granule_weights_traced(weighting, uncertainty):
         inv = 1.0 / err2
         return torch.where(err2 > 0, inv, torch.full_like(inv, math.nan))
     if weighting == "ak":
-        raise NotImplementedError("weighting='ak' needs averaging-kernel granules "
-                                  "(MOPITT/GOSAT), not ported yet: ROADMAP queue 1 item 9")
+        if aks is None:
+            raise ValueError("weighting='ak' needs averaging-kernel granules "
+                             "(MOPITT/GOSAT); use 'inverse_variance' otherwise")
+        return nanmean(torch.abs(aks.to(torch.float32)), 1)
     raise ValueError(f"unknown weighting {weighting!r}")
 
 
 def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
                   bias_slope: float = 1.0, error_ctm: float = 50.0,
-                  ctm_scale: float = 1.0, weights=None,
+                  gosat_mode: bool = False, ctm_scale: float = 1.0, weights=None,
                   curve_impl: str = "auto", run_oi: bool = True) -> AnalysisOutputs:
     """Monthly average + bias correction + OI update + innovation stats.
+
+    ``gosat_mode``: the OI and the innovation statistics run on the xcol
+    pair (prior ``aux2``, observation ``aux1``; reference driver.py:112-114).
 
     ``ctm_scale`` rescales the averaged CTM column before the OI (the O3
     DU conversion); ``weights`` (G, H, W) selects the weighted temporal
@@ -109,7 +176,7 @@ def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
                                        inputs.aux2, weights)
     sat_vcd = (stats.sat_vcd - bias_offset) / bias_slope
     ctm_vcd = stats.ctm_vcd * ctm_scale
-    xa, y = ctm_vcd, sat_vcd
+    xa, y = (stats.aux2, stats.aux1) if gosat_mode else (ctm_vcd, sat_vcd)
     sa = (xa * error_ctm / 100.0) ** 2
     so = stats.sat_error**2
     if run_oi:
@@ -136,38 +203,120 @@ def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
                            oi=res, scaling_factor=sf, innovation=innov)
 
 
-def _amf_recal_month(inputs: FullMonthInputs):
-    """amf_recal_fields over the granule axis, in chunks (see
-    ``_AMF_CHUNK_CELL_LEVELS``); returns (new_amf, vcd_corr, model_vcd)."""
-    g = inputs.vcd.shape[0]
-    per_granule = inputs.ctm_pmid[0].numel() if g else 1
+def over_granule_chunks(fn, tensors, extra=()):
+    """``fn(*chunk_of_each_tensor, *extra)`` over the leading granule axis in
+    chunks of at most ``_AMF_CHUNK_CELL_LEVELS`` elements of the largest
+    tensor; ``fn`` returns a tensor or a tuple of tensors, concatenated back
+    along the granule axis."""
+    g = tensors[0].shape[0]
+    per_granule = max(t[0].numel() for t in tensors) if g else 1
     step = max(1, _AMF_CHUNK_CELL_LEVELS // max(per_granule, 1))
-    parts = []
-    for s in range(0, g, step):
-        sl = slice(s, s + step)
-        parts.append(amf_recal_fields(inputs.sat_pmid[sl], inputs.sat_sw[sl],
-                                      inputs.ctm_pmid[sl], inputs.ctm_pc[sl],
-                                      inputs.tropopause[sl], inputs.vcd[sl],
-                                      inputs.amf[sl], True))
+    parts = [fn(*(t[s:s + step] for t in tensors), *extra) for s in range(0, g, step)]
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts)
     return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _amf_recal_month(inputs: FullMonthInputs, has_trop: bool = True):
+    """amf_recal_fields over the granule axis, in chunks; returns (new_amf,
+    vcd_corr, model_vcd)."""
+    return over_granule_chunks(
+        amf_recal_fields,
+        (inputs.sat_pmid, inputs.sat_sw, inputs.ctm_pmid, inputs.ctm_pc,
+         inputs.tropopause, inputs.vcd, inputs.amf), (has_trop,))
+
+
+def _finish_month(ai: AnalysisInputs, daily_vcd, return_granules: bool, **kw):
+    """The shared tail of the month steps: :func:`analysis_step`, with the
+    per-granule :class:`DailyGranules` beside it when asked for."""
+    out = analysis_step(ai, **kw)
+    if return_granules:
+        return out, DailyGranules(vcd=daily_vcd, ctm_vcd=ai.ctm_vcd,
+                                  uncertainty=ai.uncertainty)
+    return out
 
 
 def full_month_step(inputs: FullMonthInputs, bias_offset: float = 0.0,
                     bias_slope: float = 1.0, error_ctm: float = 50.0,
                     ctm_scale: float = 1.0, weighting=None,
-                    curve_impl: str = "auto", run_oi: bool = True) -> AnalysisOutputs:
+                    curve_impl: str = "auto", return_granules: bool = False,
+                    run_oi: bool = True):
     """AMF recalculation per granule + monthly statistics + bias correction
     + OI for a whole month (:func:`oisat_tpu.parallel.analysis.full_month_step`).
 
     ``weighting`` ("inverse_variance" or None) enables the weighted
-    temporal mean; ``run_oi`` as in :func:`analysis_step`.  Granules without
-    a tropopause pass zeros, which never mask a level (pmid < 0 never
-    holds)."""
+    temporal mean; ``run_oi`` as in :func:`analysis_step`;
+    ``return_granules=True`` returns ``(outputs, DailyGranules)``.  Granules
+    without a tropopause pass zeros, which never mask a level (pmid < 0
+    never holds)."""
     new_amf, vcd_corr, model_vcd = _amf_recal_month(inputs)
     ai = AnalysisInputs(vcd=vcd_corr, uncertainty=inputs.uncertainty,
                         ctm_vcd=model_vcd, aux1=new_amf, aux2=inputs.amf)
-    return analysis_step(ai, bias_offset=bias_offset, bias_slope=bias_slope,
+    return _finish_month(ai, vcd_corr, return_granules,
+                         bias_offset=bias_offset, bias_slope=bias_slope,
                          error_ctm=error_ctm, ctm_scale=ctm_scale,
-                         weights=_granule_weights_traced(weighting,
-                                                         inputs.uncertainty),
+                         weights=_granule_weights_traced(weighting, inputs.uncertainty),
+                         curve_impl=curve_impl, run_oi=run_oi)
+
+
+def mopitt_month_step(inputs: MopittMonthInputs, bias_offset: float = 0.0,
+                      bias_slope: float = 1.0, error_ctm: float = 50.0,
+                      ctm_scale: float = 1.0, weighting=None,
+                      curve_impl: str = "auto", return_granules: bool = False,
+                      run_oi: bool = True):
+    """AK convolution + averaging + OI for a MOPITT month (reference
+    driver.py:45-51 conv_ak + :108-111 oi); aux1/aux2 are the retrieved and
+    the model xcol.  ``weighting`` may also be "ak"."""
+    model_vcd, model_xcol = over_granule_chunks(
+        ak_conv_mopitt_fields,
+        (inputs.ctm_pmid, inputs.ctm_profile, inputs.ctm_airpc, inputs.sat_pmid,
+         inputs.aks, inputs.aprior_col, inputs.apriori_profile,
+         inputs.apriori_surface, inputs.vcd))
+    ai = AnalysisInputs(vcd=inputs.vcd, uncertainty=inputs.uncertainty,
+                        ctm_vcd=model_vcd, aux1=inputs.x_col, aux2=model_xcol)
+    return _finish_month(ai, inputs.vcd, return_granules,
+                         bias_offset=bias_offset, bias_slope=bias_slope,
+                         error_ctm=error_ctm, ctm_scale=ctm_scale,
+                         weights=_granule_weights_traced(weighting, inputs.uncertainty,
+                                                         aks=inputs.aks),
+                         curve_impl=curve_impl, run_oi=run_oi)
+
+
+def gosat_month_step(inputs: GosatMonthInputs, bias_offset: float = 0.0,
+                     bias_slope: float = 1.0, error_ctm: float = 50.0,
+                     ctm_scale: float = 1.0, weighting=None,
+                     curve_impl: str = "auto", return_granules: bool = False,
+                     run_oi: bool = True):
+    """AK convolution + averaging + xcol-pair OI for a GOSAT month (reference
+    ak_conv_gosat.py:8-146); the model VCD stays NaN (:138), in the daily
+    granules too."""
+    model_xcol = over_granule_chunks(
+        ak_conv_gosat_fields,
+        (inputs.ctm_pmid, inputs.ctm_profile, inputs.sat_pmid, inputs.aks,
+         inputs.apriori_profile, inputs.pressure_weight, inputs.x_col))
+    ai = AnalysisInputs(vcd=inputs.vcd, uncertainty=inputs.uncertainty,
+                        ctm_vcd=torch.full_like(inputs.vcd, math.nan),
+                        aux1=inputs.x_col, aux2=model_xcol)
+    return _finish_month(ai, inputs.vcd, return_granules,
+                         bias_offset=bias_offset, bias_slope=bias_slope,
+                         error_ctm=error_ctm, gosat_mode=True, ctm_scale=ctm_scale,
+                         weights=_granule_weights_traced(weighting, inputs.uncertainty,
+                                                         aks=inputs.aks),
+                         curve_impl=curve_impl, run_oi=run_oi)
+
+
+def ssmis_month_step(inputs: SsmisMonthInputs, bias_offset: float = 0.0,
+                     bias_slope: float = 1.0, error_ctm: float = 50.0,
+                     ctm_scale: float = 1.0, weighting=None,
+                     curve_impl: str = "auto", return_granules: bool = False,
+                     run_oi: bool = True):
+    """PWV + averaging + OI for an SSMIS month; aux1/aux2 are NaN."""
+    pwv = over_granule_chunks(pwv_fields, (inputs.water_pc, inputs.vcd))
+    nanlike = torch.full_like(inputs.vcd, math.nan)
+    ai = AnalysisInputs(vcd=inputs.vcd, uncertainty=inputs.uncertainty,
+                        ctm_vcd=pwv, aux1=nanlike, aux2=nanlike)
+    return _finish_month(ai, inputs.vcd, return_granules,
+                         bias_offset=bias_offset, bias_slope=bias_slope,
+                         error_ctm=error_ctm, ctm_scale=ctm_scale,
+                         weights=_granule_weights_traced(weighting, inputs.uncertainty),
                          curve_impl=curve_impl, run_oi=run_oi)

@@ -1,0 +1,1 @@
+"""Product readers of the port (twin of :mod:`oisat_tpu.readers`)."""

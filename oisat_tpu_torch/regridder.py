@@ -1,7 +1,9 @@
 """Granule regridding: host weight building + one device apply.
 
-Counterpart of :mod:`oisat_tpu.regridder` for ``satellite_amf`` granules
-(reference oisatgmi/interpolator.py:100-291):
+Counterpart of :mod:`oisat_tpu.regridder` (reference
+oisatgmi/interpolator.py:100-291, interpolator_ssmis.py:96-168) for
+``satellite_amf`` and ``satellite_opt`` granules (:func:`regrid_granule`) and
+``satellite_ssmis`` granules (:func:`regrid_ssmis_granule`):
 
   host   build the SparsePlan pixels -> fine grid for the granule's geometry
          and the Upscaler fine grid -> CTM grid (the port's copies
@@ -14,8 +16,8 @@ Counterpart of :mod:`oisat_tpu.regridder` for ``satellite_amf`` granules
 
 The TPU package's transfer workarounds are not ported: no f16 narrowing,
 no plan compaction, no affine carrier level for the pressure stack, no
-pixel-axis buckets, no lazy/pending collection.  SSMIS, the GOSAT filler
-and the SPMD mesh regrid are ROADMAP queue 1 items 9 and 13.
+pixel-axis buckets, no lazy/pending collection.  The SPMD mesh regrid is
+ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import torch
 
 from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.convert import plan_to_torch
-from oisat_tpu_torch.datamodel import satellite_amf
-from oisat_tpu_torch.ops.regrid import apply_plan_arrays, boxfilter_same_symm
+from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt, satellite_ssmis
+from oisat_tpu_torch.ops.regrid import apply_plan, apply_plan_arrays, boxfilter_same_symm
 from oisat_tpu_torch.ops.weights import (
     SparsePlan,
     build_plan,
@@ -40,7 +42,7 @@ from oisat_tpu_torch.ops.weights import (
 )
 from oisat_tpu_torch.utils.lru import LockedLRU
 
-__all__ = ["Upscaler", "make_upscaler", "regrid_granule"]
+__all__ = ["Upscaler", "make_upscaler", "regrid_granule", "regrid_ssmis_granule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,15 @@ class Upscaler:
     out_lon: np.ndarray
     out_lat: np.ndarray
 
+    def apply(self, z: torch.Tensor, error: bool = False) -> torch.Tensor:
+        """``z`` (..., H, W) on the source grid, on the plan's device ->
+        (..., Ht, Wt) on the target grid; ``error`` takes the squared box
+        kernel."""
+        if self.needed:
+            return z
+        zf = boxfilter_same_symm(z, self.ky, self.kx, squared=error)
+        return apply_plan(self.plan, zf.reshape(zf.shape[:-2] + (-1,)))
+
 
 def _geom_key(lon2d, lat2d):
     """Content-derived cache key of a 2-D grid geometry: shape, corners and
@@ -72,14 +83,13 @@ def _geom_key(lon2d, lat2d):
             float(np.abs(lon2d).sum()), float(np.abs(lat2d).sum()))
 
 
-# the reference's "too far" cutoff: targets farther than 2 x the threshold
-# from the nearest source pixel are NaN (interpolator.py:16-33)
-_FAR_FACTOR = 2.0
-
 # the fine grid and the fine->CTM map depend only on the CTM geometry, which
-# every granule of a run shares; per-orbit swath plans are not cached
+# every granule of a run shares; fixed-geometry products (MOPITT L3, the GOSAT
+# filler's map, SSMIS) repeat their pixel->fine-grid plan too, while swath
+# sensors churn that small cache (its plans sit on the device)
 _fine_grid_cache = LockedLRU(8)
 _upscaler_cache = LockedLRU(16)
+_plan_cache = LockedLRU(4)
 
 
 def _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size):
@@ -92,24 +102,30 @@ def _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size):
 
 
 def make_upscaler(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, grid_size: float,
-                  threshold: float, device, fast: bool = True) -> Upscaler:
-    """The reference ``_upscaler`` decision + mapping (interpolator.py:48-97):
-    KD-nearest with the 2x cutoff, its plan on ``device``.  ``fast`` takes
-    the native structured-grid builder; cached per (geometries, options,
-    device)."""
+                  threshold: float, device, method: int = 4, far_factor: float = 2.0,
+                  fast: bool = True) -> Upscaler:
+    """The reference ``_upscaler`` decision + mapping (interpolator.py:48-97),
+    its plan on ``device``.  ``grid_size`` is the source-grid pitch,
+    ``threshold`` the distance cutoff: targets farther than ``far_factor`` x
+    the threshold from the nearest source point are NaN.  The main pipeline
+    maps KD-nearest with the 2x cutoff (``method=4``); the SSMIS variant
+    Delaunay-linear with 1x (``method=1``, ``far_factor=1``).  ``fast``
+    takes the native structured-grid builder; cached per (geometries,
+    options, device)."""
     dev = resolve_device(device)
     tgt_dlon, tgt_dlat = grid_spacing(tgt_lon2d, tgt_lat2d)
     if not (tgt_dlon >= grid_size or tgt_dlat >= grid_size):
         return Upscaler(True, 1, 1, None, src_lon2d, src_lat2d)
     key = (_geom_key(src_lon2d, src_lat2d), _geom_key(tgt_lon2d, tgt_lat2d),
-           float(grid_size), float(threshold), fast, str(dev))
+           float(grid_size), float(threshold), int(method), float(far_factor),
+           fast, str(dev))
     cached = _upscaler_cache.get(key)
     if cached is not None:
         return cached
     kx = max(int(np.floor(tgt_dlon / grid_size)), 1)
     ky = max(int(np.floor(tgt_dlat / grid_size)), 1)
-    plan = _granule_plan(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, threshold,
-                         method=4, fast=fast)
+    plan = _build_plan(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, threshold,
+                       method, far_factor, fast)
     if plan is None:
         raise RuntimeError("upscaler weight build failed for a regular grid "
                            "geometry (degenerate fine/CTM grid?)")
@@ -118,8 +134,8 @@ def make_upscaler(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, grid_size: float,
     return up
 
 
-def _granule_plan(src_lon, src_lat, tgt_lon2d, tgt_lat2d, threshold: float,
-                  method: int, fast: bool):
+def _build_plan(src_lon, src_lat, tgt_lon2d, tgt_lat2d, threshold: float,
+                method: int, far_factor: float, fast: bool):
     """The source-pixel -> target-grid SparsePlan (host numpy) for one
     geometry, or None when the swath cannot be triangulated (the reference
     skips such granules, interpolator.py:151-155).  ``fast`` tries the native
@@ -127,12 +143,33 @@ def _granule_plan(src_lon, src_lat, tgt_lon2d, tgt_lat2d, threshold: float,
     plan = None
     if fast and method in (1, 2, 4) and np.ndim(src_lon) == 2:
         plan = build_plan_structured(src_lon, src_lat, tgt_lon2d, tgt_lat2d,
-                                     threshold=threshold, far_factor=_FAR_FACTOR,
+                                     threshold=threshold, far_factor=far_factor,
                                      method=method)
     if plan is None:
         plan = build_plan(np.asarray(src_lon).ravel(), np.asarray(src_lat).ravel(),
                           tgt_lon2d, tgt_lat2d, method=method,
-                          threshold=threshold, far_factor=_FAR_FACTOR)
+                          threshold=threshold, far_factor=far_factor)
+    return plan
+
+
+def _granule_plan(sat_lon, sat_lat, lons_fine, lats_fine, grid_size: float,
+                  method: int, far_factor: float, fast: bool, device):
+    """The pixel -> fine-grid SparsePlan of one granule geometry with its
+    ``idx`` / ``w`` / ``mask`` on ``device``, or None for an untriangulatable
+    granule (not cached).  Cached per (geometries, grid_size, method,
+    far_factor, fast, device)."""
+    key = (_geom_key(np.atleast_2d(np.asarray(sat_lon)), np.atleast_2d(np.asarray(sat_lat))),
+           _geom_key(lons_fine, lats_fine), float(grid_size), int(method),
+           float(far_factor), bool(fast), str(device))
+    hit = _plan_cache.get(key)
+    if hit is not None:
+        return hit
+    plan = _build_plan(sat_lon, sat_lat, lons_fine, lats_fine, grid_size, method,
+                       far_factor, fast)
+    if plan is None:
+        return None
+    plan = plan_to_torch(plan, device)
+    _plan_cache.put(key, plan)
     return plan
 
 
@@ -145,11 +182,14 @@ def _quality_mask(quality_flag, flag_thresh: float) -> np.ndarray:
 
 
 def _regrid_device_impl(batch, err, idx, w, mask, up_idx, up_w, up_mask,
-                        fine_shape, ky: int, kx: int, passthrough: bool):
-    """The per-granule device pipeline: the value batch and the error
-    variance onto the fine grid, box filter, map onto the CTM grid.  ``err``
-    arrives as the raw uncertainty and is squared here."""
-    err = err * err
+                        fine_shape, ky: int, kx: int, passthrough: bool,
+                        square_err: bool = True):
+    """The per-granule device pipeline: the value batch and the error field
+    onto the fine grid, box filter (the error with the squared kernel), map
+    onto the CTM grid.  ``square_err``: ``err`` arrives as the raw
+    uncertainty and is squared here (the SSMIS variant keeps it raw)."""
+    if square_err:
+        err = err * err
     fine = apply_plan_arrays(batch, idx, w, mask).reshape(batch.shape[:-1] + fine_shape)
     fine_err = apply_plan_arrays(err, idx, w, mask).reshape(err.shape[:-1] + fine_shape)
     if passthrough:
@@ -181,31 +221,51 @@ def _finish_device_fields(gridded, err_gridded, layout, hw):
     return out
 
 
+def _run_regrid(plan, upsc, batch, err, device, square_err: bool):
+    """One granule's (F, Npix) value batch and (1, Npix) error row through
+    the device pipeline; returns (values, errors, (H, W) of the result)."""
+    if upsc.needed:
+        up = (None, None, None)
+        hw = tuple(plan.out_shape)
+    else:
+        up = (upsc.plan.idx, upsc.plan.w, upsc.plan.mask)
+        hw = tuple(upsc.out_lat.shape)
+    out, out_err = _regrid_device_impl(
+        torch.as_tensor(batch, device=device), torch.as_tensor(err, device=device),
+        plan.idx, plan.w, plan.mask, *up, tuple(plan.out_shape),
+        upsc.ky, upsc.kx, upsc.needed, square_err)
+    return out, out_err, hw
+
+
 def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
                    ctm_lon2d: np.ndarray, ctm_lat2d: np.ndarray, device,
                    flag_thresh: float = 0.75, fast_swath: bool = True):
-    """Regrid one ``satellite_amf`` granule (host numpy leaves) onto the CTM
-    grid; returns a ``satellite_amf`` whose fields are float32 tensors on
-    ``device``, or None when the granule cannot be triangulated or misses
-    the domain (reference interpolator.py:151-155, :165-167).
+    """Regrid one ``satellite_amf`` or ``satellite_opt`` granule (host numpy
+    leaves) onto the CTM grid; returns a granule of the same kind whose
+    fields are float32 tensors on ``device``, or None when the granule
+    cannot be triangulated or misses the domain (reference
+    interpolator.py:151-155, :165-167).
 
     ``fast_swath`` takes the native structured-swath weight builder
     (production); ``False`` takes the scipy qhull/cKDTree builders that
     bit-match the reference (the JAX package's ``OISAT_PARITY=1`` mode).
     """
-    if not isinstance(sat_data, satellite_amf):
-        raise TypeError(f"regrid_granule ports satellite_amf granules only, got "
-                        f"{type(sat_data).__name__} (other kinds: ROADMAP queue 1 item 9)")
+    is_amf = isinstance(sat_data, satellite_amf)
+    is_opt = isinstance(sat_data, satellite_opt)
+    if not (is_amf or is_opt):
+        raise TypeError(f"unsupported granule type {type(sat_data)!r}: regrid_granule "
+                        "takes the port's satellite_amf and satellite_opt "
+                        "(satellite_ssmis: regrid_ssmis_granule)")
     dev = resolve_device(device)
     threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
     lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
     plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
                          lons_fine, lats_fine, grid_size, method=interpolator_type,
-                         fast=fast_swath)
+                         far_factor=2.0, fast=fast_swath, device=dev)
     if plan is None:
         return None
     upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
-                         threshold_ctm, dev, fast=fast_swath)
+                         threshold_ctm, dev, method=4, far_factor=2.0, fast=fast_swath)
     mask = _quality_mask(sat_data.quality_flag, flag_thresh)
 
     names: list = []
@@ -222,45 +282,94 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
             rows.append(np.squeeze(a[z]))
 
     add2d("vcd", sat_data.vcd)
-    add2d("amf", sat_data.amf)
+    if is_amf:
+        add2d("amf", sat_data.amf)
     if np.size(sat_data.tropopause) != 1:
         add2d("tropopause", sat_data.tropopause)
-    has_sw = np.size(sat_data.scattering_weights) != 1
+    has_sw = is_amf and np.size(sat_data.scattering_weights) != 1
     if has_sw:
         add3d("scattering_weights", sat_data.scattering_weights)
         add3d("pressure_mid", sat_data.pressure_mid)
+    if is_opt:
+        gosat = sat_data.sensor == "GOSAT"
+        # all-zero placeholders (np.zeros((1,)) of the readers) stay out
+        for name in ("aprior_column", "surface_pressure", "apriori_surface"):
+            if np.asarray(getattr(sat_data, name)).any():
+                add2d(name, getattr(sat_data, name))
+        add2d("x_col", sat_data.x_col)
+        add3d("averaging_kernels", sat_data.averaging_kernels)
+        if gosat:
+            add3d("pressure_weight", sat_data.pressure_weight)
+        add3d("pressure_mid", sat_data.pressure_mid)
+        add3d("apriori_profile", sat_data.apriori_profile)
 
     # cast first, then the QA multiply (mask is exactly 1.0 or NaN)
     batch = np.stack([(np.asarray(r, np.float32) * mask).ravel() for r in rows])
     err = (np.asarray(np.squeeze(sat_data.uncertainty), np.float32) * mask).ravel()[None]
-    plan_t = plan_to_torch(plan, dev)
-    if upsc.needed:
-        up = (None, None, None)
-        hw = plan.out_shape
-    else:
-        up = (upsc.plan.idx, upsc.plan.w, upsc.plan.mask)
-        hw = tuple(upsc.out_lat.shape)
-    out, out_err = _regrid_device_impl(
-        torch.as_tensor(batch, device=dev), torch.as_tensor(err, device=dev),
-        plan_t.idx, plan_t.w, plan_t.mask, *up, plan.out_shape,
-        upsc.ky, upsc.kx, upsc.needed)
+    out, out_err, hw = _run_regrid(plan, upsc, batch, err, dev, square_err=True)
     d = _finish_device_fields(out, out_err, tuple(names), hw)
 
     vcd = d["vcd"]
     if bool(torch.isnan(vcd).all()):
         return None  # granule misses the analysis domain
+    common = dict(
+        vcd=vcd, time=sat_data.time, tropopause=d.get("tropopause", np.empty((1,))),
+        latitude_center=upsc.out_lat, longitude_center=upsc.out_lon,
+        latitude_corner=[], longitude_corner=[], uncertainty=d["uncertainty"],
+        quality_flag=[], ctm_upscaled_needed=upsc.needed, ctm_vcd=[], ctm_time_at_sat=[])
+    if is_opt:
+        return satellite_opt(
+            profile=[], pressure_mid=d["pressure_mid"],
+            averaging_kernels=d["averaging_kernels"], ctm_xcol=[],
+            aprior_column=d.get("aprior_column", np.zeros((1,))),
+            apriori_profile=d["apriori_profile"],
+            surface_pressure=d.get("surface_pressure", np.zeros((1,))),
+            apriori_surface=d.get("apriori_surface", np.zeros((1,))),
+            x_col=d["x_col"],
+            pressure_weight=d["pressure_weight"] if gosat else np.empty((1,)),
+            sensor=sat_data.sensor, **common)
     nz = np.shape(sat_data.pressure_mid)[0] if np.size(sat_data.pressure_mid) > 1 else 0
     if has_sw:
         sw, pmid = d["scattering_weights"], d["pressure_mid"]
     else:
         sw = np.empty((1,))
         pmid = torch.zeros((nz,) + tuple(hw), dtype=vcd.dtype, device=dev)
-    return satellite_amf(
-        vcd=vcd, amf=d["amf"], time=sat_data.time,
-        tropopause=d.get("tropopause", np.empty((1,))),
+    return satellite_amf(amf=d["amf"], pressure_mid=pmid, scattering_weights=sw,
+                         old_amf=[], new_amf=[], **common)
+
+
+def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
+                         ctm_lat2d: np.ndarray, device, fast_swath: bool = True):
+    """The SSMIS variant (reference interpolator_ssmis.py:96-168): one
+    ``satellite_ssmis`` granule (host numpy leaves) onto the CTM grid, its
+    ``vcd`` and ``uncertainty`` float32 tensors on ``device``.
+
+    Differences from :func:`regrid_granule`, as in the reference: no quality
+    mask; the raw uncertainty (not its square) goes through the squared
+    error kernel with no final sqrt; both the granule interpolation and the
+    fine -> CTM map are Delaunay-linear with a 1x (not 2x) distance cutoff
+    (interpolator_ssmis.py:18-28, :67-70, :88-89); no all-NaN check.  The
+    geometry stays float64, as in the JAX package (the reference casts the
+    fine-grid coordinates to float16)."""
+    if not isinstance(sat_data, satellite_ssmis):
+        raise TypeError(f"unsupported granule type {type(sat_data)!r}: "
+                        "regrid_ssmis_granule takes the port's satellite_ssmis")
+    dev = resolve_device(device)
+    threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
+    lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
+    plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
+                         lons_fine, lats_fine, grid_size, method=1, far_factor=1.0,
+                         fast=fast_swath, device=dev)
+    if plan is None:
+        return None
+    upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
+                         threshold_ctm, dev, method=1, far_factor=1.0, fast=fast_swath)
+    out, out_err, hw = _run_regrid(
+        plan, upsc, np.asarray(sat_data.vcd, np.float32).ravel()[None],
+        np.asarray(sat_data.uncertainty, np.float32).ravel()[None], dev, square_err=False)
+    return satellite_ssmis(
+        vcd=out[0].reshape(hw),
+        # the raw value through the squared kernel, no sqrt
+        uncertainty=out_err[0].reshape(hw), time=sat_data.time,
         latitude_center=upsc.out_lat, longitude_center=upsc.out_lon,
-        latitude_corner=[], longitude_corner=[],
-        uncertainty=d["uncertainty"], quality_flag=[], pressure_mid=pmid,
-        scattering_weights=sw, ctm_upscaled_needed=upsc.needed,
-        ctm_vcd=[], ctm_time_at_sat=[], old_amf=[], new_amf=[],
-    )
+        ctm_upscaled_needed=upsc.needed, ctm_vcd=[], sensor="SSMIS")

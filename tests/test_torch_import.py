@@ -1,8 +1,9 @@
 """The port runs where jax, h5py, yaml and matplotlib are absent, and it
 imports nothing of the JAX package: every slice module (and chip_smoke.py)
 imports with those and ``oisat_tpu`` blocked in ``sys.modules``, and a CPU
-regrid through the port's native plan builder (whose import is lazy) runs
-so blocked.  The port's copies of the JAX package's host plan builders
+regrid through the port's native plan builder (whose import is lazy) and a
+MOPITT-like staged month with a Desroziers pass and its daily files run so
+blocked.  The port's copies of the JAX package's host plan builders
 give the JAX package's plans."""
 
 import subprocess
@@ -39,6 +40,10 @@ SLICE_MODULES = [
     "oisat_tpu_torch.datamodel",
     "oisat_tpu_torch.convert",
     "oisat_tpu_torch.regridder",
+    "oisat_tpu_torch.obs_operators",
+    "oisat_tpu_torch.readers",
+    "oisat_tpu_torch.readers.sensors",
+    "oisat_tpu_torch.readers.sensors.gosat",
     "oisat_tpu_torch.driver",
     "oisat_tpu_torch.entry",
     "chip_smoke",
@@ -59,6 +64,33 @@ assert native.available()
 assert g is not None and int(g.vcd.isfinite().sum()) > 50
 """
 
+# two MOPITT-shaped days on a coarse CTM grid (so the CTM is not upscaled)
+# through the staged driver: conv_ak -> average -> bias_correct -> oi with a
+# binned Desroziers pass -> savedaily
+_STAGED = """
+import tempfile
+from types import SimpleNamespace
+from oisat_tpu_torch.driver import oisatgmi
+from oisat_tpu_torch.entry import synthetic_ctm, synthetic_mopitt_day
+lon2d, lat2d = np.meshgrid(np.arange(-180.0, 180.0, 5.0), np.arange(-90.0, 90.1, 4.0))
+ctm = synthetic_ctm(lon2d, lat2d, nt=2, nz=6, gas="CO")
+grans = [regrid_granule(1, 1.0, synthetic_mopitt_day(1 + d, 1 + d), lon2d, lat2d, "cpu",
+                        flag_thresh=0.0) for d in range(2)]
+assert not grans[0].ctm_upscaled_needed and grans[0].averaging_kernels.shape[0] == 10
+obj = oisatgmi()
+obj.reader_obj = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
+obj.conv_ak("MOPITT")
+obj.average("2019-07-01", "2019-08-01")
+obj.bias_correct("MOPITT", "CO")
+obj.oi("MOPITT", desroziers_iterations=1, desroziers_bins=2)
+assert obj.oi_diagnostics["n"] > 500 and obj.desroziers_sa_scale_map.shape == lat2d.shape
+assert np.isfinite(obj.ctm_averaged_vcd_corrected).sum() > 500
+with tempfile.TemporaryDirectory() as folder:
+    obj.savedaily(folder, "CO", "201907")
+    import os
+    assert len(os.listdir(folder)) == 2
+"""
+
 
 def test_slice_imports_without_jax_h5py_yaml_matplotlib():
     code = "\n".join([
@@ -70,6 +102,7 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         "import oisat_tpu_torch",
         "oisat_tpu_torch.oisatgmi",
         _REGRID,
+        _STAGED,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
         "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",

@@ -204,5 +204,11 @@ def test_entry_inputs_are_the_graft_entry_inputs():
 
 
 def test_weighting_ak_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """"ak" weights need averaging kernels: an AMF month refuses them on both
+    sides (the averaging-kernel sensors take them, tests/test_torch_sensors.py)."""
+    with pytest.raises(ValueError, match="averaging-kernel"):
         tan.full_month_step(entry.synthetic_full_month("cpu"), weighting="ak")
+    host = graft._synthetic_full_month()
+    with pytest.raises(ValueError, match="averaging-kernel"):
+        jan.full_month_step(jan.FullMonthInputs(*(jnp.asarray(x) for x in host)),
+                            weighting="ak")

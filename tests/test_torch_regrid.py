@@ -221,7 +221,7 @@ def test_analyze_month_fused_full_covariance_matches_jax(monkeypatch, error_scal
     same = copy.copy(pobj)
     for name in ("sat_averaged_vcd", "sat_averaged_error", "ctm_averaged_vcd"):
         setattr(same, name, np.array(getattr(jobj, name)))
-    same._oi_full(50.0, 200.0, torch.device("cpu"), "auto")
+    same._oi_impl("OMI", 50.0, "full", 200.0)
     _assert_full_oi_parity(same, jobj, tol)
     if tail:
         assert pobj.oi_diagnostics["f64_resid"] <= 1e-5
@@ -250,16 +250,27 @@ def _assert_full_oi_parity(pobj, jobj, tol):
 
 
 def test_analyze_month_fused_refuses_what_is_not_ported(monkeypatch):
+    """What still raises NotImplementedError: the matrix-free full OI above
+    the dense limit (with and without a Desroziers pass) and the file I/O
+    methods; Desroziers itself now runs."""
     pobj, _ = _month_pair(monkeypatch, n=1)
-    for kw, what in ((dict(desroziers_iterations=1), "item 11"),):
+    month = ("OMI", "NO2", "2019-07-01", "2019-08-01")
+    pobj.analyze_month_fused(*month, desroziers_iterations=1)
+    assert pobj.oi_diagnostics["desroziers_iterations"] == 1
+    monkeypatch.setattr(port_oi_full, "DENSE_SCAN_MAX_CELLS", 10)
+    for kw, what in ((dict(oi_method="full"), "item 10"),
+                     (dict(oi_method="full", desroziers_iterations=1), "item 10")):
         with pytest.raises(NotImplementedError, match=what):
-            pobj.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01", **kw)
+            pobj.analyze_month_fused(*month, **kw)
+    for method in ("read_data", "write_to_nc", "reporting", "save_state", "load_state"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            getattr(pobj, method)()
     with pytest.raises(ValueError, match="oi_method"):
-        pobj.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01", oi_method="cg")
+        pobj.analyze_month_fused(*month, oi_method="cg")
     empty = copy.copy(pobj)
     empty.reader_obj = SimpleNamespace(ctm_data=pobj.reader_obj.ctm_data, sat_data=[None])
     with pytest.raises(ValueError, match="no valid"):
-        empty.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01")
+        empty.analyze_month_fused(*month)
 
 
 def test_synthetic_orbits_through_the_port_month():
@@ -311,3 +322,190 @@ def test_conus_window_and_its_regional_orbits():
         g = port_regrid_granule(1, 0.25, o, wlon, wlat, "cpu", flag_thresh=0.5)
         assert g is not None and int(torch.isfinite(g.vcd).sum()) > 300
         assert 0.05 < float(np.nanmedian(o.uncertainty)) < 0.15  # REGIONAL_ERROR_MEAN
+
+
+# ---- the other granule kinds: satellite_opt, satellite_ssmis, the GOSAT filler ----
+
+def _region(pitch_lat, pitch_lon, lat0=20.0, lat1=44.0, lon0=-30.0, lon1=10.0):
+    return np.meshgrid(np.arange(lon0, lon1 + 1e-9, pitch_lon),
+                       np.arange(lat0, lat1 + 1e-9, pitch_lat))
+
+
+def _opt_granule(sensor, seed=0, Ls=5):
+    """A MOPITT- or GOSAT-like host granule on a regular 1 degree grid, a
+    missing patch and 2% scattered NaN, float32 level stacks; MOPITT carries the 2-D a-priori fields, GOSAT
+    their all-zero placeholders and the pressure weights."""
+    import datetime
+
+    from oisat_tpu.datamodel import satellite_opt
+
+    rng = np.random.default_rng(seed)
+    lon, lat = _region(1.0, 1.0, 21.0, 43.0, -29.0, 9.0)
+    hw = lat.shape
+    mopitt = sensor == "MOPITT"
+    vcd = np.abs(rng.normal(2, 0.5, hw))
+    vcd[rng.random(hw) < 0.02] = np.nan
+    vcd[:6, :9] = np.nan
+    qa = np.ones(hw)
+    qa[rng.random(hw) < 0.02] = 0.0
+    f32 = np.float32
+    return satellite_opt(
+        vcd=vcd, time=datetime.datetime(2019, 7, 3, 12), profile=[],
+        tropopause=np.empty((1,)), latitude_center=lat, longitude_center=lon,
+        latitude_corner=[], longitude_corner=[],
+        uncertainty=np.abs(rng.normal(0.3, 0.05, hw)), quality_flag=qa,
+        pressure_mid=np.sort(rng.uniform(100, 900, (Ls,) + hw), axis=0)[::-1].astype(f32),
+        averaging_kernels=rng.uniform(0, 0.5, (Ls + mopitt,) + hw).astype(f32),
+        aprior_column=np.abs(rng.normal(2, 0.3, hw)) if mopitt else np.zeros((1,)),
+        apriori_profile=np.abs(rng.normal(80, 15, (Ls,) + hw)).astype(f32),
+        surface_pressure=np.full(hw, 1000.0) if mopitt else np.zeros((1,)),
+        apriori_surface=np.abs(rng.normal(90, 10, hw)) if mopitt else np.zeros((1,)),
+        x_col=np.abs(rng.normal(1.8, 0.1, hw)),
+        pressure_weight=(np.empty((1,)) if mopitt
+                         else np.full((Ls,) + hw, 1.0 / Ls, f32)),
+        sensor=sensor)
+
+
+_OPT_FIELDS = ("vcd", "uncertainty", "x_col", "pressure_mid", "averaging_kernels",
+               "apriori_profile", "aprior_column", "surface_pressure", "apriori_surface",
+               "pressure_weight")
+
+
+def _assert_granule_parity(got, want, names):
+    """Tensor fields at the float32 regrid tolerance; placeholders of the same
+    size and content; the same geometry and flags."""
+    assert got.ctm_upscaled_needed is want.ctm_upscaled_needed
+    assert np.array_equal(got.latitude_center, want.latitude_center)
+    assert np.array_equal(got.longitude_center, want.longitude_center)
+    assert got.time == want.time and got.sensor == want.sensor
+    for name in names:
+        g, w = getattr(got, name), getattr(want, name)
+        if np.size(w) == 1:
+            assert not torch.is_tensor(g) and np.shape(g) == np.shape(w), name
+            if name != "pressure_weight":  # np.empty((1,)): no content
+                assert np.array_equal(g, w), name
+            continue
+        assert g.dtype == torch.float32, name
+        assert_parity(g.numpy(), w, np.float32, name)
+
+
+@pytest.mark.parametrize("passthrough", [False, True])
+@pytest.mark.parametrize("sensor", ["MOPITT", "GOSAT"])
+def test_regrid_granule_opt_matches_jax(monkeypatch, sensor, passthrough):
+    """A satellite_opt granule with the MOPITT_CO / GOSAT_XCH4 constants
+    (linear, 1.0 degree, threshold 0.0): onto a 2 degree CTM grid through the
+    box filter, and onto a 0.5 x 0.625 degree one, where the fields stay on
+    the 1 degree grid and the CTM is flagged for upscaling."""
+    monkeypatch.setenv("OISAT_PARITY", "1")
+    clon, clat = _region(0.5, 0.625) if passthrough else _region(2.0, 2.0)
+    want = jax_regrid_granule(1, 1.0, _opt_granule(sensor), clon, clat, flag_thresh=0.0,
+                              device=False)
+    got = port_regrid_granule(1, 1.0, convert.satellite_opt_from(_opt_granule(sensor)),
+                              clon, clat, "cpu", flag_thresh=0.0, fast_swath=False)
+    assert got.ctm_upscaled_needed is passthrough
+    _assert_granule_parity(got, want, _OPT_FIELDS)
+    assert torch.isfinite(got.vcd).sum() > 50
+    assert (np.size(got.aprior_column) == 1) == (sensor == "GOSAT")
+    # the native builder regrids the same granule onto the same cells
+    fast = port_regrid_granule(1, 1.0, convert.satellite_opt_from(_opt_granule(sensor)),
+                               clon, clat, "cpu", flag_thresh=0.0)
+    assert fast.vcd.shape == got.vcd.shape
+    assert (torch.isfinite(fast.vcd) & torch.isfinite(got.vcd)).sum() > 50
+
+
+def _ssmis_granule(seed=0):
+    import datetime
+
+    from oisat_tpu.datamodel import satellite_ssmis
+
+    rng = np.random.default_rng(seed)
+    lon, lat = _region(0.25, 0.25, 24.0, 40.0, -26.0, 6.0)
+    vcd = np.abs(rng.normal(20, 5, lat.shape))
+    vcd[rng.random(lat.shape) < 0.02] = np.nan
+    vcd[:12, :20] = np.nan
+    return satellite_ssmis(vcd=vcd, uncertainty=0.05 * vcd,
+                           time=datetime.datetime(2019, 7, 15), latitude_center=lat,
+                           longitude_center=lon, sensor="SSMIS")
+
+
+@pytest.mark.parametrize("passthrough", [False, True])
+def test_regrid_ssmis_granule_matches_jax(monkeypatch, passthrough):
+    """The SSMIS variant: no QA mask, the raw uncertainty through the squared
+    kernel with no sqrt, Delaunay-linear both ways with the 1x cutoff."""
+    from oisat_tpu.regridder import regrid_ssmis_granule as jax_regrid_ssmis
+    from oisat_tpu_torch.regridder import regrid_ssmis_granule as port_regrid_ssmis
+
+    monkeypatch.setenv("OISAT_PARITY", "1")
+    clon, clat = _region(0.125, 0.125, 26, 38, -24, 4) if passthrough else _region(0.5, 0.625)
+    want = jax_regrid_ssmis(0.25, _ssmis_granule(), clon, clat, device=False)
+    got = port_regrid_ssmis(0.25, convert.satellite_ssmis_from(_ssmis_granule()), clon, clat,
+                            "cpu", fast_swath=False)
+    assert got.ctm_upscaled_needed is passthrough
+    _assert_granule_parity(got, want, ("vcd", "uncertainty"))
+    both = torch.isfinite(got.vcd) & torch.isfinite(got.uncertainty)
+    assert both.sum() > 100
+    if not passthrough:  # a 2 x 2 box of the raw error with the squared kernel: ~ err / 4
+        ratio = (got.uncertainty[both] / got.vcd[both]).median()
+        assert 0.25 * 0.04 < float(ratio) < 0.25 * 0.06
+    with pytest.raises(TypeError, match="satellite_ssmis"):
+        port_regrid_ssmis(0.25, _opt_granule("MOPITT"), clon, clat, "cpu")
+
+
+def _gosat_soundings(seed=0, n=400, Ls=4, with_ak=True):
+    """Sparse GOSAT soundings (points on the last axis), float32 level stacks."""
+    import datetime
+
+    from oisat_tpu.datamodel import satellite_opt
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = np.abs(rng.normal(1800, 30, n))
+    one = np.empty((1,))
+    return satellite_opt(
+        vcd=x, time=datetime.datetime(2019, 7, 3), profile=[], tropopause=np.empty((1,)),
+        latitude_center=rng.uniform(-60, 70, n), longitude_center=rng.uniform(-170, 170, n),
+        latitude_corner=[], longitude_corner=[],
+        uncertainty=np.abs(rng.normal(10, 2, n)),
+        quality_flag=(rng.random(n) > 0.1) * 1.0,
+        pressure_mid=(np.sort(rng.uniform(50, 990, (Ls, n)), axis=0)[::-1].astype(f32)
+                      if with_ak else one),
+        averaging_kernels=rng.uniform(0.2, 1.0, (Ls, n)).astype(f32) if with_ak else one,
+        aprior_column=np.zeros((1,)),
+        apriori_profile=(np.abs(rng.normal(1800, 40, (Ls, n))).astype(f32)
+                         if with_ak else one),
+        surface_pressure=np.zeros((1,)), apriori_surface=np.zeros((1,)), x_col=x,
+        pressure_weight=np.full((Ls, n), 1.0 / Ls, f32) if with_ak else one, sensor="GOSAT")
+
+
+@pytest.mark.parametrize("with_ak", [True, False])
+def test_filler_gosatxch4_matches_jax(monkeypatch, with_ak):
+    """Sparse soundings -> global maps (here 5 degrees): every field in
+    float64 at rtol 1e-12, the flag by nearest neighbour, size-1 placeholders
+    kept; then the filled granule through both regrids."""
+    from oisat_tpu.readers.sensors.gosat import filler_gosatxch4 as jax_filler
+    from oisat_tpu_torch.readers.sensors.gosat import filler_gosatxch4 as port_filler
+
+    monkeypatch.setenv("OISAT_PARITY", "1")
+    want = jax_filler(5.0, _gosat_soundings(with_ak=with_ak), 0.5)
+    got = port_filler(5.0, convert.satellite_opt_from(_gosat_soundings(with_ak=with_ak)),
+                      "cpu", 0.5)
+    assert got.vcd.shape == (37, 73) and got.sensor == "GOSAT"
+    assert np.array_equal(got.latitude_center, want.latitude_center)
+    for name in _OPT_FIELDS + ("quality_flag",):
+        g, w = getattr(got, name), getattr(want, name)
+        assert isinstance(g, np.ndarray) and g.shape == np.shape(w), name
+        if np.size(w) > 1:
+            assert np.array_equal(np.isnan(g), np.isnan(w)), name
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=0, equal_nan=True, err_msg=name)
+    assert np.isfinite(got.vcd).sum() > 300
+    assert (np.size(got.averaging_kernels) == 1) == (not with_ak)
+    if with_ak:
+        clon, clat = np.meshgrid(np.arange(-180.0, 180.0, 10.0), np.arange(-90.0, 90.1, 10.0))
+        rj = jax_regrid_granule(1, 5.0, want, clon, clat, flag_thresh=0.0, device=False)
+        rp = port_regrid_granule(1, 5.0, got, clon, clat, "cpu", flag_thresh=0.0,
+                                 fast_swath=False)
+        _assert_granule_parity(rp, rj, _OPT_FIELDS)
+    # soundings on one line cannot be triangulated
+    line = convert.satellite_opt_from(_gosat_soundings(n=5, with_ak=False))
+    line.latitude_center = np.zeros(5)
+    assert port_filler(5.0, line, "cpu", 0.5) is None
