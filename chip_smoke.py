@@ -89,6 +89,29 @@ Phases (any failure raises, exit code != 0):
     desroziers_iterations=1)`` finishes with finite fields and reports
     ``desroziers_iterations``.
 
+12. The job runner on the card: control dictionaries with the keys of
+    ``run/control.yml`` go through ``oisat_tpu_torch.run.job._analyze``, on
+    granules the earlier phases built: (a) phase 4's OMI month with
+    ``fused_month: true``; (b) phase 8's MOPITT month with no ``fused_month``
+    (the staged dispatch); (c) a ``fused_month: true`` month the fused step
+    refuses (phase 7's CONUS orbits read without scattering weights,
+    ``read_AK: false``), which prints the fallback line and finishes staged;
+    (d) phase 7's CONUS month with ``oi_method: full``, ``length_scale_km:
+    300``.  Each is held to the direct driver call on the same granules (the
+    same factor; fields within that phase's tolerance: rtol 1e-5, the
+    staged bound, 1e-9), the two kernels' launch counts rise by exactly what
+    the path launches, and the wall seconds stand beside the direct call's.
+    ``_diag_fields()`` of (a): the 11 names, float arrays of the grid's
+    shape, the scaling factor equal to a numpy recomputation (NaN / inf / 0
+    -> 1.0), no device->host copy for fields the month already pulled and
+    exactly one for each field that is a tensor.  ``settle_device_granules``
+    leaves ``sat_data`` as it is.  (e) (c)'s orbits regridded in a worker
+    thread while the main thread launches the curve kernel, then analysed in
+    the main thread, give (c)'s result bitwise (the campaign's prefetch).
+    The file half (``write_to_nc`` -> ``read_diag_nc``, ``save_state`` ->
+    ``load_state`` -> ``average`` -> ``oi``) runs where h5py is installed;
+    where it is not, one line says that the CPU tests hold it.
+
 Each new month logs its wall seconds, the stage split (one stage per driver
 method), the regrid seconds per granule, the host<->device copies of the
 staged path and the peak device memory.
@@ -106,10 +129,15 @@ each kernel with its launches on its path, error, times and bound.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import importlib.util
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -134,6 +162,9 @@ DRIVER_FIELDS = ("sat_averaged_vcd", "sat_averaged_error", "ctm_averaged_vcd", "
 STAGED_RTOL, STAGED_ATOL = 2e-4, 2e-5
 N_DAYS = 30  # MOPITT and GOSAT granules of the month
 N_SSMIS = 3  # one monthly map per satellite
+DIAG_NAMES = ("sat_averaged_vcd", "ctm_averaged_vcd_prior", "ctm_averaged_vcd_posterior",
+              "sat_averaged_error", "ak_OI", "error_OI", "scaling_factor", "lon", "lat",
+              "aux1", "aux2")  # the diag netCDF's variables, in the file's order
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FLOP/s outside the
 # tensor cores; the card's power limit is printed beside every time
 PEAK_BYTES_S = 3.35e12
@@ -508,7 +539,8 @@ def phase_full_month(dev, cov, oi_scan, native):
           f"picked factor {again.oi_diagnostics['reg']} instead of {diag['reg']}")
     log_stages("full month, kernel engine again (warm)", again_ms, again_s)
     return dict(launches=cov_launches, err=cov_err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bms, bound_by=by, cells=n, reader=reader)
+                bound_ms=bms, bound_by=by, cells=n, reader=reader, direct=obj,
+                direct_s=again_s, orbits=orbits, ctm=ctm, grid=(lon2d, lat2d))
 
 
 def implied_factor(obj, sensor: str, grid) -> int:
@@ -549,7 +581,8 @@ def phase_sensor_month(sensor: str, gas: str, ctm, grans, regrid_s, oi_scan, gri
     """One month of a non-AMF sensor through the driver both ways on the
     same gridded granules: the staged methods, then ``analyze_month_fused``.
     Returns (staged session, ak_curve launches of the two runs, the curve
-    kernel's times at this month's shape)."""
+    kernel's times at this month's shape, what phase 12 needs to run the
+    month again: the CTM, the unprocessed granules, the staged wall)."""
     from oisat_tpu_torch import _device
     from oisat_tpu_torch.driver import oisatgmi
 
@@ -641,7 +674,8 @@ def phase_sensor_month(sensor: str, gas: str, ctm, grans, regrid_s, oi_scan, gri
         f"{len(DRIVER_FIELDS)} fields (rtol {STAGED_RTOL:g}, atol {STAGED_ATOL:g} of the "
         f"largest magnitude; largest scaled difference {worst:.2e})")
     shape = month_device_times(sensor, ctm, grans, out, oi_scan, grid)
-    return staged, staged_launches + fused_launches, shape
+    shape_job = dict(ctm=ctm, grans=grans, staged_s=staged_s)
+    return staged, staged_launches + fused_launches, shape, shape_job
 
 
 def month_device_times(sensor: str, ctm, grans, out, oi_scan, grid) -> dict:
@@ -849,6 +883,282 @@ def phase_desroziers(oi_scan, cov, mopitt, full_reader):
     return total, cov_launches
 
 
+def job_control(sensor: str, gas: str, **over) -> dict:
+    """A control dictionary with the keys of ``run/control.yml`` (built here:
+    a GPU host need not have yaml); ``over`` sets what a phase switches."""
+    ctrl = {"python_bin": "python3", "debug": False, "save_daily": False, "num_job": 1,
+            "ctm_name": "GMI", "ctm_dir": "", "mcip_dir": "", "ctm_freq": "3-hourly",
+            "ctm_avg": True, "ctm_error": 50.0, "gas": gas, "sensor": sensor,
+            "read_AK": True, "troposphere_only": False, "sat_dir": "",
+            "start_date": "2019-07", "end_date": "2019-07", "output_pdf_dir": "report",
+            "output_nc_dir": "diag"}
+    ctrl.update(over)
+    return ctrl
+
+
+NO_WEIGHTS = "No scattering weights found"  # recal_amf says so once per granule
+
+
+def quietly(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its prints captured: (result, the text).  The
+    text is logged again with the per-granule ``NO_WEIGHTS`` lines counted
+    instead of repeated."""
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = fn(*args, **kw)
+    lines = text.getvalue().splitlines()
+    repeated = sum(NO_WEIGHTS in line for line in lines)
+    for line in lines:
+        if NO_WEIGHTS not in line:
+            log("  | " + line)
+    if repeated:
+        log(f"  | ({repeated} lines \"{NO_WEIGHTS} ...\", one per granule)")
+    return out, text.getvalue()
+
+
+def job_analyze(reader, ctrl, oi_scan, cov, want_curve: int, want_cov: int, what: str):
+    """One batch of granules through the job runner's ``_analyze`` with both
+    kernels' counts set to 0 just before and read just after: (session, wall
+    seconds, what the run printed).  Fails unless the counts rose by exactly
+    ``want_curve`` / ``want_cov``."""
+    from oisat_tpu_torch.driver import oisatgmi
+    from oisat_tpu_torch.run.job import _analyze
+
+    obj = oisatgmi()
+    obj.reader_obj = reader
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    cov.build_covariance_kernel.launches = 0
+    # ---- the main path of this slice: the job runner's dispatch ----
+    t0 = time.perf_counter()
+    _, said = quietly(_analyze, obj, ctrl, ctrl["sensor"], ctrl["gas"], *MONTH,
+                      savedaily=("diag", "2019_07"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches)
+    # ---- end of the main path ----
+    check(got == (want_curve, want_cov), f"{what}: (ak_curve, covariance) launches {got}, "
+          f"the path should launch {(want_curve, want_cov)}")
+    return obj, secs, said
+
+
+def assert_job_equals_direct(job, direct, rtol: float, atol_scale: float, what: str) -> bool:
+    """The nine driver fields of a job-runner session against the direct
+    driver call on the same granules: identical NaN patterns, values within
+    ``rtol`` plus ``atol_scale`` of the field's largest magnitude, the same
+    innovation count.  Returns whether every field is bitwise equal."""
+    bitwise = True
+    for name in DRIVER_FIELDS:
+        a, b = getattr(job, name), getattr(direct, name)
+        check(a.shape == b.shape, f"{what} {name}: shapes {a.shape} vs {b.shape}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{what} {name}: NaN patterns differ")
+        fin = np.isfinite(b)
+        if fin.any():
+            np.testing.assert_allclose(a[fin], b[fin], rtol=rtol,
+                                       atol=atol_scale * float(np.abs(b[fin]).max()),
+                                       err_msg=f"{what} {name}")
+        bitwise = bitwise and np.array_equal(a, b, equal_nan=True)
+    check(set(job.oi_diagnostics) == set(direct.oi_diagnostics), f"{what}: diagnostics' names")
+    check(job.oi_diagnostics["n"] == direct.oi_diagnostics["n"], f"{what}: n differs")
+    return bitwise
+
+
+def log_job(what: str, job_s: float, direct_s: float, bitwise: bool, launches) -> None:
+    log(f"{what}: _analyze {job_s:.3f} s, the direct driver call {direct_s:.3f} s (host "
+        f"clock); fields {'bitwise equal' if bitwise else 'within tolerance'}; (ak_curve, "
+        f"covariance) launches {launches}")
+
+
+def check_diag_fields(job, dev, hw) -> None:
+    """``_diag_fields()`` of a session on the card, without h5py."""
+    from oisat_tpu_torch import _device
+
+    _device.COPIES.update(h2d=0, d2h=0)
+    fields = job._diag_fields()
+    check(_device.COPIES["d2h"] == 0, "_diag_fields copied a field the month's one pull "
+          f"had brought to the host ({_device.COPIES['d2h']} copies)")
+    check(tuple(fields) == DIAG_NAMES, f"diag names {tuple(fields)}")
+    for name, v in fields.items():
+        check(isinstance(v, np.ndarray) and v.dtype.kind == "f" and v.shape == tuple(hw),
+              f"diag field {name}: {type(v)} {getattr(v, 'dtype', None)} "
+              f"{getattr(v, 'shape', None)}")
+    prior, post = fields["ctm_averaged_vcd_prior"], fields["ctm_averaged_vcd_posterior"]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sf = post / prior
+    ruled = np.isnan(sf) | np.isinf(sf) | (sf == 0.0)
+    check(np.array_equal(fields["scaling_factor"], np.where(ruled, 1.0, sf)),
+          "scaling_factor differs from posterior / prior with NaN, inf, 0 -> 1.0")
+    check(0 < int(ruled.sum()) < ruled.size, "the month must hold cells on both sides of "
+          "the 1.0 rule")
+    # a session whose fields are tensors on the card: one copy for each
+    tensors = copy.copy(job)
+    names = ("sat_averaged_vcd", "sat_averaged_error", "ctm_averaged_vcd", "aux1", "aux2",
+             "ctm_averaged_vcd_corrected", "ak_OI", "error_OI")
+    for name in names:
+        setattr(tensors, name, torch.as_tensor(getattr(job, name), device=dev))
+    _device.COPIES.update(h2d=0, d2h=0)
+    again = tensors._diag_fields()
+    check(_device.COPIES["d2h"] == len(names), f"{_device.COPIES['d2h']} device->host "
+          f"copies for {len(names)} tensor fields")
+    for name in DIAG_NAMES:
+        check(np.array_equal(again[name], fields[name], equal_nan=True),
+              f"diag field {name} differs when pulled from the card")
+    log(f"_diag_fields(): {len(fields)} names in the file's order, float arrays {tuple(hw)}; "
+        f"scaling_factor == numpy's posterior / prior, {int(ruled.sum())} cells set to 1.0; "
+        f"0 device->host copies (the month pulled its fields once), {len(names)} for "
+        f"{len(names)} fields held as tensors on the card")
+
+
+def phase_job_omi(dev, oi_scan, cov, direct, direct_s, reg_index, grid) -> int:
+    """Phase 12a: phase 4's month through the job runner, ``fused_month: true``."""
+    log("== phase 12: the job runner on the card (run.job._analyze on control dictionaries)")
+    reader = direct.reader_obj
+    ctrl = job_control("OMI", "NO2", fused_month=True)
+    job, secs, _ = job_analyze(reader, ctrl, oi_scan, cov, 1, 0, "12a OMI fused month")
+    bitwise = assert_job_equals_direct(job, direct, 1e-5, 0.0, "12a OMI fused month")
+    check(implied_factor(job, "OMI", grid) == reg_index,
+          "12a: the job's fields do not carry the direct call's factor")
+    log_job("12a OMI fused month (fused_month: true)", secs, direct_s, bitwise, (1, 0))
+    check_diag_fields(job, dev, direct.ctm_averaged_vcd.shape)
+    before = list(reader.sat_data)
+    job.settle_device_granules()
+    check(len(before) == len(reader.sat_data)
+          and all(a is b for a, b in zip(before, reader.sat_data)),
+          "settle_device_granules changed sat_data")
+    log("settle_device_granules(): sat_data unchanged (the regrid drops an off-domain "
+        "granule when it regrids it)")
+    return 1
+
+
+def phase_job_mopitt(oi_scan, cov, direct, month, grid) -> int:
+    """Phase 12b: phase 8's MOPITT month through the staged dispatch."""
+    reader = SimpleNamespace(ctm_data=[month["ctm"]],
+                             sat_data=[copy.copy(g) for g in month["grans"]])
+    ctrl = job_control("MOPITT", "CO", ctm_name="ECCOH")
+    job, secs, said = job_analyze(reader, ctrl, oi_scan, cov, 1, 0, "12b MOPITT staged month")
+    check("fused month not applicable" not in said, "12b: a month without fused_month "
+          "went through the fused path first")
+    bitwise = assert_job_equals_direct(job, direct, STAGED_RTOL, STAGED_ATOL,
+                                       "12b MOPITT staged month")
+    check(implied_factor(job, "MOPITT", grid) == implied_factor(direct, "MOPITT", grid),
+          "12b: the job and the direct staged call picked different factors")
+    log_job("12b MOPITT month (no fused_month: conv_ak -> average -> bias_correct -> oi)",
+            secs, month["staged_s"], bitwise, (1, 0))
+    return 1
+
+
+def file_round_trip(job, staged, folder: str, dev) -> None:
+    """``write_to_nc`` -> ``read_diag_nc`` of one session, and ``save_state`` ->
+    ``load_state`` -> ``average`` -> ``oi`` of a staged one, on the card."""
+    from oisat_tpu_torch.driver import oisatgmi
+    from oisat_tpu_torch.ncwriter import read_diag_nc
+
+    job.write_to_nc("NO2_201907", folder)
+    fields, tstr, attrs = read_diag_nc(f"{folder}/NO2_201907.nc", with_attrs=True)
+    want = job._diag_fields()
+    check(tstr == job.avg_time.strftime("%Y-%m-%d %H:%M:%S"), f"diag time {tstr!r}")
+    check(set(fields) == set(DIAG_NAMES), f"diag variables {sorted(fields)}")
+    for name in DIAG_NAMES:
+        check(np.array_equal(fields[name], want[name].astype(np.float32), equal_nan=True),
+              f"diag variable {name} read back differs")
+    check(set(attrs) == set(job.oi_diagnostics), f"diag attributes {sorted(attrs)}")
+    staged.save_state(f"{folder}/granules.h5")
+    resumed = oisatgmi()
+    resumed.load_state(f"{folder}/granules.h5", ctm_data=staged.reader_obj.ctm_data, device=dev)
+    resumed.average(*MONTH, gasname="NO2")
+    resumed.bias_correct("OMI", "NO2")
+    resumed.oi("OMI", error_ctm=50.0)
+    for name in DRIVER_FIELDS:
+        check(np.array_equal(getattr(resumed, name), getattr(staged, name), equal_nan=True),
+              f"save_state -> load_state -> average -> oi: {name} differs")
+    log("file round trip on the card: write_to_nc -> read_diag_nc equal; save_state -> "
+        "load_state -> average -> oi equal to the uninterrupted run")
+
+
+def phase_job_conus(dev, oi_scan, cov, full, grid):
+    """Phases 12c-e on the CONUS month; returns (ak_curve launches of the
+    fallback month, covariance launches of the full month)."""
+    from oisat_tpu_torch.driver import oisatgmi
+    from oisat_tpu_torch.ops.oi import oi
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    lon2d, lat2d = full["grid"]
+    # 12d: the full-covariance month, oi_method: full
+    ctrl = job_control("OMI", "NO2", fused_month=True, oi_method="full",
+                       length_scale_km=LENGTH_SCALE_KM)
+    job, secs, _ = job_analyze(full["reader"], ctrl, oi_scan, cov, 0, 1,
+                               "12d CONUS full month")
+    direct = full["direct"]
+    bitwise = assert_job_equals_direct(job, direct, FULL_RTOL, 0.0, "12d CONUS full month")
+    for key in ("reg", "solver"):
+        check(job.oi_diagnostics[key] == direct.oi_diagnostics[key],
+              f"12d: {key} {job.oi_diagnostics[key]} vs {direct.oi_diagnostics[key]}")
+    log_job(f"12d CONUS month (oi_method: full, length_scale_km: {LENGTH_SCALE_KM:g})", secs,
+            full["direct_s"], bitwise, (0, 1))
+
+    # 12c: the same orbits as read with read_AK: false -- no scattering weights
+    bare = [dataclasses.replace(o, scattering_weights=np.empty((1,))) for o in full["orbits"]]
+
+    def regrid_all():
+        return [regrid_granule(1, 0.25, o, lon2d, lat2d, dev, flag_thresh=0.5) for o in bare]
+
+    def staged(obj):
+        obj.recal_amf()
+        obj.average(*MONTH, gasname="NO2")
+        obj.bias_correct("OMI", "NO2")
+        obj.oi("OMI", error_ctm=50.0)
+
+    def staged_direct(grans):
+        obj = oisatgmi()
+        obj.reader_obj = SimpleNamespace(ctm_data=[full["ctm"]], sat_data=grans)
+        t0 = time.perf_counter()
+        quietly(staged, obj)
+        torch.cuda.synchronize()
+        return obj, time.perf_counter() - t0
+
+    direct, direct_s = staged_direct(regrid_all())
+    ctrl = job_control("OMI", "NO2", fused_month=True, read_AK=False)
+    reader = SimpleNamespace(ctm_data=[full["ctm"]], sat_data=regrid_all())
+    check(all(np.size(g.scattering_weights) == 1 for g in reader.sat_data),
+          "12c: the granules must carry no scattering weights")
+    job, secs, said = job_analyze(reader, ctrl, oi_scan, cov, 1, 0, "12c OMI fallback month")
+    check("fused month not applicable (fused month path needs scattering weights); "
+          "running staged pipeline" in said, "12c: the fallback line was not printed")
+    bitwise = assert_job_equals_direct(job, direct, STAGED_RTOL, STAGED_ATOL,
+                                       "12c OMI fallback month")
+    check(implied_factor(job, "OMI", grid) == implied_factor(direct, "OMI", grid),
+          "12c: the job and the direct staged call picked different factors")
+    log_job("12c CONUS month without scattering weights (fused_month: true refused -> "
+            "recal_amf -> average -> bias_correct -> oi)", secs, direct_s, bitwise, (1, 0))
+
+    # 12e: the campaign's prefetch -- the regrid in a worker thread while this
+    # thread keeps the curve kernel busy, the analysis here
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in oi_fields((1440, 720), seed=3)]
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(regrid_all)
+        passes = 0
+        while not pending.done():
+            oi(*args)  # the curve kernel, on this thread
+            passes += 1
+        grans = pending.result()
+    threaded, _ = staged_direct(grans)
+    for name in DRIVER_FIELDS:
+        check(np.array_equal(getattr(threaded, name), getattr(direct, name), equal_nan=True),
+              f"12e: {name} of a month regridded in a worker thread differs")
+    log(f"12e: {len(grans)} orbits regridded in a worker thread beside {passes} oi() passes "
+        "of this thread, analysed here: bitwise the inline month")
+
+    # the file half: h5py decides, in the open
+    if importlib.util.find_spec("h5py") is not None:
+        with tempfile.TemporaryDirectory() as folder:
+            file_round_trip(job, direct, folder, dev)
+    else:
+        log("h5py is not installed here: the file round trip (write_to_nc -> read_diag_nc, "
+            "save_state -> load_state -> average -> oi) is held by the CPU tests "
+            "(tests/test_torch_job.py, tests/test_torch_ncwriter.py)")
+    return 1, 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1033,20 +1343,32 @@ def main() -> int:
         "factors": regs.numel(),
         "dtype": str(u.dtype).replace("torch.", ""),
     }
-    # the global month's tensors (~20 GB) are not needed again
-    del inputs, step, xa, u, valid, grans, obj, ref
+    # the month's stacked inputs (~20 GB) go before the job runner repeats it
+    del inputs, step, xa, u, valid
+    torch.cuda.empty_cache()
+    job_paths = {"job_omi_fused_month": phase_job_omi(dev, oi_scan, cov, obj, month_s,
+                                                      reg_index, regs_np)}
+    # the global month's granules are not needed again
+    del grans, obj, ref
     torch.cuda.empty_cache()
     cov_times = phase_covariance(dev, cov)
     full = phase_full_month(dev, cov, oi_scan, native)
-    mopitt, mopitt_launches, mopitt_shape = phase_mopitt(dev, oi_scan, regs_np)
+    mopitt, mopitt_launches, mopitt_shape, mopitt_job = phase_mopitt(dev, oi_scan, regs_np)
     by_path = {"omi_fused_month": launches, "mopitt_staged_and_fused": mopitt_launches}
+    by_path.update(job_paths)
+    # before phase 11 re-runs the OI of the staged session this is held to
+    by_path["job_mopitt_staged"] = phase_job_mopitt(oi_scan, cov, mopitt, mopitt_job, regs_np)
+    del mopitt_job
     by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
                                                                     full["reader"])
     del mopitt
     torch.cuda.empty_cache()
-    _, by_path["gosat_staged_and_fused"], gosat_shape = phase_gosat(dev, oi_scan, regs_np)
+    _, by_path["gosat_staged_and_fused"], gosat_shape, _ = phase_gosat(dev, oi_scan, regs_np)
     torch.cuda.empty_cache()
-    _, by_path["ssmis_staged_and_fused"], ssmis_shape = phase_ssmis(dev, oi_scan, regs_np)
+    _, by_path["ssmis_staged_and_fused"], ssmis_shape, _ = phase_ssmis(dev, oi_scan, regs_np)
+    torch.cuda.empty_cache()
+    by_path["job_omi_fallback_staged"], cov_job = phase_job_conus(dev, oi_scan, cov, full,
+                                                                  regs_np)
     curve_entry["launches"] = sum(by_path.values())
     curve_entry["launches_by_path"] = by_path
     # the same kernel held against its plain version at the other months' shapes
@@ -1062,9 +1384,10 @@ def main() -> int:
         "route": "cuda",
         "source": "oisat_tpu_torch/csrc/covariance.cu",
         "replaces": "oisat_tpu/ops/kernels/covariance.py:32",
-        "launches": full["launches"] + cov_desroziers,
+        "launches": full["launches"] + cov_desroziers + cov_job,
         "launches_by_path": {"omi_full_month": full["launches"],
-                             "desroziers_full_month": cov_desroziers},
+                             "desroziers_full_month": cov_desroziers,
+                             "job_omi_full_month": cov_job},
         "max_abs_err": full["err"],
         "ms": full["ms"],
         "plain_ms": full["plain_ms"],

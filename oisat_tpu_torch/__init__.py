@@ -22,11 +22,20 @@ mirror the JAX layout so each counterpart is easy to find:
   staged: driver.oisatgmi.recal_amf / conv_ak / cal_pwv (obs_operators)
           -> average (ops.averaging.averaging) -> bias_correct -> oi
           (scalar or full, Desroziers re-estimation) -> savedaily
+  files:  driver.oisatgmi.read_data (readers: ncio, the CTM readers, the
+          per-sensor readers; decode on host threads, regrid on the device)
+          -> ... -> write_to_nc (ncwriter) / reporting (report, data);
+          save_state / load_state (utils.granule_store)
+  jobs:   run.job (one control.yml month: fused, staged or fallback
+          dispatch; TEMPO's hour loop), run.campaign (months in one
+          process), tools.readjust_OI, examples.synthetic_month
 
 The package imports torch, numpy and scipy, and nothing of jax or of
-``oisat_tpu``.  Tensors are created on the device the caller names; a CUDA
-tensor always goes through the hand-written kernel, a CPU tensor through its
-plain PyTorch version.
+``oisat_tpu``; h5py, yaml and matplotlib are imported inside the functions
+that read or write files.  Whatever reads files or runs a job computes on
+the card unless the caller names another device.  Tensors are created on
+the device the caller names; a CUDA tensor always goes through the
+hand-written kernel, a CPU tensor through its plain PyTorch version.
 """
 
 __version__ = "0.1.0"

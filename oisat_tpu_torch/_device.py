@@ -9,10 +9,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "COPIES", "h2d", "d2h", "size", "granule_device"]
+__all__ = ["resolve_device", "default_device", "COPIES", "positive_strides", "h2d", "d2h",
+           "size", "granule_device"]
 
 # copies made by the staged path since the caller last reset them
 COPIES = {"h2d": 0, "d2h": 0}
+
+
+def positive_strides(x) -> np.ndarray:
+    """``x`` as a numpy array torch can wrap: a view with a negative stride
+    (the CTM readers flip the level axis with ``np.flip``) is copied."""
+    a = np.asarray(x)
+    return a.copy() if any(s < 0 for s in a.strides) else a
 
 
 def h2d(x, device, dtype=None) -> torch.Tensor:
@@ -21,7 +29,7 @@ def h2d(x, device, dtype=None) -> torch.Tensor:
     if torch.is_tensor(x):
         return x.to(device=device, dtype=dtype) if dtype is not None else x.to(device)
     COPIES["h2d"] += 1
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.as_tensor(positive_strides(x), dtype=dtype, device=device)
 
 
 def d2h(t) -> np.ndarray:
@@ -52,6 +60,13 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def default_device(device=None) -> torch.device:
+    """The device of an entry point that reads files or runs a job: the card
+    unless the caller names another (``None`` -> ``"cuda"``, which raises when
+    there is none; the CPU is used only when asked for)."""
+    return resolve_device("cuda" if device is None else device)
 
 
 def granule_device(granule) -> torch.device:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from oisat_tpu_torch import datamodel
-from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch._device import positive_strides, resolve_device
 from oisat_tpu_torch.parallel.analysis import (
     AnalysisInputs,
     FullMonthInputs,
@@ -35,7 +35,7 @@ __all__ = ["to_tensor", "to_numpy", "full_month_inputs", "analysis_inputs",
 def to_tensor(x, device) -> torch.Tensor:
     """A numpy array (or array-like) as a tensor on ``device``; integer
     arrays become int64, floating arrays keep their dtype."""
-    a = np.asarray(x)
+    a = positive_strides(x)
     if a.dtype.kind in "iu":
         a = a.astype(np.int64)
     return torch.as_tensor(a, device=resolve_device(device))

@@ -1,9 +1,11 @@
 """The ``oisatgmi`` session API of the port.
 
 Counterpart of :class:`oisat_tpu.driver.oisatgmi` (reference
-oisatgmi/driver.py:17-227) without its file I/O: the staged path
+oisatgmi/driver.py:17-227): ``read_data`` -> the staged path
 ``recal_amf / conv_ak / cal_pwv -> average -> bias_correct -> oi ->
-savedaily`` and the fused month :meth:`oisatgmi.analyze_month_fused`, for
+savedaily`` or the fused month :meth:`oisatgmi.analyze_month_fused` ->
+``reporting`` / ``write_to_nc``, with ``save_state`` / ``load_state``
+checkpoints, for
 ``satellite_amf`` (AMF recalculation), ``satellite_opt`` (MOPITT / GOSAT
 averaging-kernel convolution; GOSAT assimilates the xcol pair) and
 ``satellite_ssmis`` (precipitable water) granules.  State attribute names
@@ -27,11 +29,12 @@ from __future__ import annotations
 
 import datetime
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from oisat_tpu_torch._device import d2h, granule_device, h2d, size
+from oisat_tpu_torch._device import d2h, default_device, granule_device, h2d, size
 from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt, satellite_ssmis
 from oisat_tpu_torch.obs_operators import (
     _amf_one,
@@ -66,6 +69,7 @@ from oisat_tpu_torch.parallel.analysis import (
     mopitt_month_step,
     ssmis_month_step,
 )
+from oisat_tpu_torch.utils.profiling import stage
 from oisat_tpu_torch.utils.stages import StageClock
 
 __all__ = ["oisatgmi", "BIAS_CORRECTIONS"]
@@ -151,12 +155,13 @@ def _clip_negative(y64: np.ndarray) -> np.ndarray:
 class oisatgmi:
     """One analysis session (one sensor, one gas, one month).
 
-    Set ``reader_obj`` (``ctm_data``: list of ctm_model with host numpy
-    leaves, ``sat_data``: list of regridded granules whose fields are tensors
-    on one device, None for a skipped file) before calling the staged methods
-    or :meth:`analyze_month_fused`.  With a ``stage_ms`` dict every staged
-    method adds its wall milliseconds (the device synchronised at its end)
-    under its own name."""
+    :meth:`read_data` or :meth:`load_state` sets ``reader_obj`` (``ctm_data``:
+    list of ctm_model with host numpy leaves, ``sat_data``: list of regridded
+    granules whose fields are tensors on one device, None for a skipped
+    file); a caller with gridded granules of its own sets it itself before
+    calling the staged methods or :meth:`analyze_month_fused`.  With a
+    ``stage_ms`` dict every staged method adds its wall milliseconds (the
+    device synchronised at its end) under its own name."""
 
     def __init__(self, stage_ms: dict | None = None) -> None:
         self.stage_ms = stage_ms
@@ -175,14 +180,37 @@ class oisatgmi:
             return self.aux2, self.aux1
         return self.ctm_averaged_vcd, self.sat_averaged_vcd
 
-    # -- file I/O (reference driver.py:22-34, :116-227): not ported yet ------
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the port has no file readers, writers or report yet (ROADMAP queue 1 "
-            "item 8): set reader_obj from regridded granules and read the results "
-            "from the session's attributes")
+    # -- ingestion (reference driver.py:22-34) --------------------------------
+    def read_data(self, ctm_type: str, ctm_path: Path, ctm_gas_name: str,
+                  ctm_frequency: str, sat_type: str, sat_path: Path, YYYYMM: str,
+                  averaging=False, read_ak=True, trop=False, num_job=1,
+                  mcip_dir=None, tempo_hour=None, control_free="control_free.yml",
+                  device=None, fast_swath=True):
+        """Read the month's CTM files (host numpy) and satellite files, every
+        granule regridded onto the CTM grid on ``device`` (None: the card; it
+        raises when there is none).  ``fast_swath=False`` takes the scipy
+        weight builders of the JAX package's parity mode."""
+        from oisat_tpu_torch.readers import readers
 
-    read_data = write_to_nc = reporting = save_state = load_state = _not_ported
+        # the reference job runner passes read_AK as the *string* "False"
+        # for FREE runs (reference run/job.py:21-23) and compares with
+        # `== True` downstream; normalize to a real bool here.
+        if isinstance(read_ak, str):
+            read_ak = read_ak.lower() == "true"
+        device = default_device(device)
+        reader_obj = readers()
+        reader_obj.add_ctm_data(ctm_type, Path(ctm_path), mcip_dir=mcip_dir)
+        with stage("read_ctm"):
+            reader_obj.read_ctm_data(YYYYMM, ctm_gas_name, frequency_opt=ctm_frequency,
+                                     averaging=averaging, num_job=num_job,
+                                     control_free=control_free)
+        reader_obj.add_satellite_data(sat_type, Path(sat_path))
+        with stage("read_satellite", sync=device):
+            reader_obj.read_satellite_data(YYYYMM, read_ak=read_ak, trop=trop,
+                                           num_job=num_job, tempo_hour=tempo_hour,
+                                           device=device, fast_swath=fast_swath)
+        self.reader_obj = reader_obj
+        self.gasname = ctm_gas_name[0]
 
     # -- observation operators (reference driver.py:36-51) -------------------
     def recal_amf(self):
@@ -618,3 +646,93 @@ class oisatgmi:
             self._write_daily_mat(folder, gasname, counter, sat.time, d2h(sat.vcd),
                                   d2h(sat.ctm_vcd), d2h(sat.uncertainty),
                                   latitude, longitude)
+
+    # -- stage-boundary checkpointing ----------------------------------------
+    def settle_device_granules(self):
+        """Nothing to settle: the port's regrid drops a granule that misses
+        the analysis domain when it regrids it (``regrid_granule`` returns
+        None, reference interpolator.py:165-167), so no granule carries a
+        deferred validity flag and ``sat_data`` stays as it is.  Kept so the
+        job runner and callers of the JAX driver find the method."""
+        return
+
+    def save_state(self, path):
+        """Persist the processed granule list (its tensors pulled to the
+        host); ``average -> oi -> write_to_nc`` can later resume from it
+        without re-reading L2."""
+        from oisat_tpu_torch.utils.granule_store import save_granules
+
+        save_granules(path, self.reader_obj.sat_data)
+
+    def load_state(self, path, ctm_data=None, device=None):
+        """Resume from a granule checkpoint (inverse of :meth:`save_state`):
+        the granules' fields become tensors on ``device`` (None: the card)."""
+        from types import SimpleNamespace
+
+        from oisat_tpu_torch.convert import granule_to
+        from oisat_tpu_torch.utils.granule_store import load_granules
+
+        device = default_device(device)
+        sat = [g if g is None else granule_to(g, device) for g in load_granules(path)]
+        if getattr(self, "reader_obj", None) is None:
+            self.reader_obj = SimpleNamespace(ctm_data=ctm_data or [], sat_data=sat)
+        else:
+            self.reader_obj.sat_data = sat
+
+    # -- outputs (reference driver.py:115-227) ---------------------------------
+    def reporting(self, fname: str, gasname, folder="report"):
+        from oisat_tpu_torch.report import report
+
+        sat = self.reader_obj.sat_data[self._first_valid()]
+        ctm = self.reader_obj.ctm_data[0]
+        # plot on the coarser of the two grids (reference driver.py:119-129)
+        if np.size(ctm.latitude) * np.size(ctm.longitude) < \
+           np.size(sat.latitude_center) * np.size(sat.longitude_center):
+            lat, lon = sat.latitude_center, sat.longitude_center
+        else:
+            lat, lon = ctm.latitude, ctm.longitude
+        fields = [d2h(getattr(self, name)) for name in (
+            "ctm_averaged_vcd", "ctm_averaged_vcd_corrected", "sat_averaged_vcd",
+            "sat_averaged_error", "increment_OI", "ak_OI", "error_OI", "aux1", "aux2")]
+        report(lon, lat, *fields, fname, folder, gasname)
+
+    def _diag_fields(self) -> dict:
+        """The diag file's variables, name -> host numpy array, in the file's
+        order: each field pulled to the host once (a field the month already
+        pulled is passed through), the scaling factor computed there
+        (posterior / prior; NaN, inf and 0 -> 1.0, reference
+        driver.py:204-209), the two per-cell Desroziers scale maps after a
+        binned run."""
+        sat = self.reader_obj.sat_data[self._first_valid()]
+        prior = d2h(self.ctm_averaged_vcd)
+        posterior = d2h(self.ctm_averaged_vcd_corrected)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            scaling_factor = posterior / prior
+        scaling_factor = np.where(
+            np.isnan(scaling_factor) | np.isinf(scaling_factor) | (scaling_factor == 0.0),
+            1.0, scaling_factor)
+        fields = {
+            "sat_averaged_vcd": d2h(self.sat_averaged_vcd),
+            "ctm_averaged_vcd_prior": prior,
+            "ctm_averaged_vcd_posterior": posterior,
+            "sat_averaged_error": d2h(self.sat_averaged_error),
+            "ak_OI": d2h(self.ak_OI),
+            "error_OI": d2h(self.error_OI),
+            "scaling_factor": scaling_factor,
+            "lon": d2h(sat.longitude_center),
+            "lat": d2h(sat.latitude_center),
+            "aux1": d2h(self.aux1),
+            "aux2": d2h(self.aux2),
+        }
+        if getattr(self, "desroziers_sa_scale_map", None) is not None:
+            fields["desroziers_sa_scale"] = d2h(self.desroziers_sa_scale_map)
+            fields["desroziers_so_scale"] = d2h(self.desroziers_so_scale_map)
+        return fields
+
+    def write_to_nc(self, output_file, output_folder="diag"):
+        from oisat_tpu_torch.ncwriter import write_diag_nc
+
+        os.makedirs(output_folder, exist_ok=True)
+        write_diag_nc(os.path.join(output_folder, output_file + ".nc"), self._diag_fields(),
+                      self.avg_time.strftime("%Y-%m-%d %H:%M:%S"),
+                      global_attrs=getattr(self, "oi_diagnostics", None))

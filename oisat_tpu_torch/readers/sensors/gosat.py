@@ -1,21 +1,27 @@
-"""GOSAT XCH4 point-to-map filler (reference oisatgmi/filler_gosat.py:87-201).
-
-Counterpart of :func:`oisat_tpu.readers.sensors.gosat.filler_gosatxch4`; the
-file reader that stands beside it there is not ported yet.
-"""
+"""GOSAT XCH4 reader + point-to-map filler (twin of
+:mod:`oisat_tpu.readers.sensors.gosat`; reference
+oisatgmi/filler_gosat.py:87-201, reader.py:1216-1275, fleet :1434-1448)."""
 
 from __future__ import annotations
+
+import datetime
+import glob
 
 import numpy as np
 import torch
 
-from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch._device import default_device, resolve_device
 from oisat_tpu_torch.convert import plan_to_torch
 from oisat_tpu_torch.datamodel import satellite_opt
 from oisat_tpu_torch.ops.regrid import apply_plan
 from oisat_tpu_torch.ops.weights import build_plan
+from oisat_tpu_torch.readers.ncio import read_nc
+from oisat_tpu_torch.readers.sensors.common import (epoch_time, fleet_map, on_device,
+                                                    regrid)
 
-__all__ = ["filler_gosatxch4"]
+__all__ = ["filler_gosatxch4", "gosat_reader_xch4", "gosat_reader"]
+
+EPOCH_1970 = datetime.datetime(1970, 1, 1)
 
 
 def filler_gosatxch4(grid_size: float, sat_data: satellite_opt, device,
@@ -68,3 +74,53 @@ def filler_gosatxch4(grid_size: float, sat_data: satellite_opt, device,
         aprior_column=np.zeros((1,)), apriori_profile=lv(sat_data.apriori_profile),
         surface_pressure=np.zeros((1,)), apriori_surface=np.zeros((1,)),
         x_col=xch4, pressure_weight=lv(sat_data.pressure_weight), sensor="GOSAT")
+
+
+def gosat_reader_xch4(fname, ctm_lon=None, ctm_lat=None, read_ak=True, device=None,
+                      fast_swath=True):
+    """GOSAT L2 XCH4 soundings (reference reader.py:1216-1275): point data,
+    gridded by the filler on ``device`` (None: the card), then the standard
+    regrid."""
+    print("Currently reading: " + fname.split("/")[-1])
+    time = epoch_time(EPOCH_1970, np.nanmean(read_nc(fname, "time")))
+    lat = read_nc(fname, "latitude").astype("float32")
+    lon = read_nc(fname, "longitude").astype("float32")
+    xch4 = np.array(read_nc(fname, "xch4"), np.float64)
+    xch4[(xch4 <= 0) | np.isinf(xch4)] = np.nan
+    apriori_profile = np.array(read_nc(fname, "ch4_profile_apriori"), np.float64).transpose()
+    apriori_profile[apriori_profile <= 0] = np.nan
+    quality_flag = read_nc(fname, "xch4_quality_flag")
+    uncertainty = read_nc(fname, "xch4_uncertainty")
+    p_mid = np.array(read_nc(fname, "pressure_levels"), np.float64)
+    p_mid[p_mid <= 0] = np.nan
+    if read_ak:
+        aks = np.array(read_nc(fname, "xch4_averaging_kernel"), np.float64).transpose()
+        pw = np.array(read_nc(fname, "pressure_weight"), np.float64).transpose()
+        aks[aks <= 0] = np.nan
+        pw[pw <= 0] = np.nan
+    else:
+        aks = np.empty((1,))
+        pw = np.empty((1,))
+    g = satellite_opt(
+        vcd=xch4, time=time, profile=[], tropopause=np.empty((1,)),
+        latitude_center=lat, longitude_center=lon,
+        latitude_corner=[], longitude_corner=[], uncertainty=uncertainty,
+        quality_flag=1 - np.asarray(quality_flag),  # 0 = good -> 1 (reader.py:1266)
+        pressure_mid=p_mid.transpose(), averaging_kernels=aks,
+        aprior_column=np.zeros((1,)), apriori_profile=apriori_profile,
+        surface_pressure=np.zeros((1,)), apriori_surface=np.zeros((1,)),
+        x_col=xch4, pressure_weight=pw, sensor="GOSAT")
+    g = on_device(filler_gosatxch4, 1.0, g, default_device(device), flag_thresh=0.0)
+    return regrid("GOSAT_XCH4", g, ctm_lon, ctm_lat, device, fast_swath)
+
+
+def gosat_reader(product_dir, ctm_lon, ctm_lat, YYYYMM, read_ak=True, num_job=1,
+                 device=None, fast_swath=True):
+    """GOSAT fleet reader: year-subdirectory layout (reference reader.py:1434-1448).
+    The filler runs on the device even for a decode-only read."""
+    files = sorted(glob.glob(product_dir + "/" + YYYYMM[0:4] + "/*"
+                             + YYYYMM[0:4] + YYYYMM[4:] + "*.nc"))
+    device = default_device(device)
+    return fleet_map(lambda f: gosat_reader_xch4(f, ctm_lon, ctm_lat, read_ak, device,
+                                                 fast_swath),
+                     files, num_job, "GOSAT_XCH4")

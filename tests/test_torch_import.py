@@ -1,9 +1,10 @@
 """The port runs where jax, h5py, yaml and matplotlib are absent, and it
 imports nothing of the JAX package: every slice module (and chip_smoke.py)
 imports with those and ``oisat_tpu`` blocked in ``sys.modules``, and a CPU
-regrid through the port's native plan builder (whose import is lazy) and a
-MOPITT-like staged month with a Desroziers pass and its daily files run so
-blocked.  The port's copies of the JAX package's host plan builders
+regrid through the port's native plan builder (whose import is lazy), a
+MOPITT-like staged month with a Desroziers pass and its daily files, and the
+job runner's dispatch with its diag fields run so blocked; a call that needs
+one of the absent packages raises ImportError naming it.  The port's copies of the JAX package's host plan builders
 give the JAX package's plans."""
 
 import subprocess
@@ -42,9 +43,33 @@ SLICE_MODULES = [
     "oisat_tpu_torch.regridder",
     "oisat_tpu_torch.obs_operators",
     "oisat_tpu_torch.readers",
+    "oisat_tpu_torch.readers.ncio",
+    "oisat_tpu_torch.readers.registry",
+    "oisat_tpu_torch.readers.ctm",
+    "oisat_tpu_torch.readers.facade",
     "oisat_tpu_torch.readers.sensors",
+    "oisat_tpu_torch.readers.sensors.common",
     "oisat_tpu_torch.readers.sensors.gosat",
+    "oisat_tpu_torch.readers.sensors.mopitt",
+    "oisat_tpu_torch.readers.sensors.omi",
+    "oisat_tpu_torch.readers.sensors.omps",
+    "oisat_tpu_torch.readers.sensors.ssmis",
+    "oisat_tpu_torch.readers.sensors.tempo",
+    "oisat_tpu_torch.readers.sensors.tropomi",
+    "oisat_tpu_torch.ncwriter",
+    "oisat_tpu_torch.data",
+    "oisat_tpu_torch.data.coastlines_builtin",
+    "oisat_tpu_torch.report",
+    "oisat_tpu_torch.utils.granule_store",
+    "oisat_tpu_torch.utils.profiling",
     "oisat_tpu_torch.driver",
+    "oisat_tpu_torch.run",
+    "oisat_tpu_torch.run.job",
+    "oisat_tpu_torch.run.campaign",
+    "oisat_tpu_torch.tools",
+    "oisat_tpu_torch.tools.readjust_OI",
+    "oisat_tpu_torch.examples",
+    "oisat_tpu_torch.examples.synthetic_month",
     "oisat_tpu_torch.entry",
     "chip_smoke",
 ]
@@ -91,6 +116,33 @@ with tempfile.TemporaryDirectory() as folder:
     assert len(os.listdir(folder)) == 2
 """
 
+# the same month through the job runner's dispatch (a control dictionary, no
+# yaml), its diag fields, and what a call that needs an absent package does
+_JOB = """
+from oisat_tpu_torch.run.job import _analyze
+ctrl = {"ctm_error": 50.0, "fused_month": True, "device": "cpu"}
+job = oisatgmi()
+job.reader_obj = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
+_analyze(job, ctrl, "MOPITT", "CO", "2019-07-01", "2019-08-01", ("x", "y"))
+fields = job._diag_fields()
+assert len(fields) == 11 and fields["scaling_factor"].shape == lat2d.shape
+assert np.isfinite(fields["scaling_factor"]).all()
+job.settle_device_granules()
+from oisat_tpu_torch.readers.ncio import read_nc
+from oisat_tpu_torch.run.job import load_control
+for call, args, package in ((read_nc, ("absent.nc", "x"), "h5py"),
+                            (job.write_to_nc, ("tag", tempfile.gettempdir()), "h5py"),
+                            (job.save_state, ("absent.h5",), "h5py"),
+                            (job.reporting, ("tag", "CO", tempfile.gettempdir()), "matplotlib"),
+                            (load_control, ("absent.yml",), "yaml")):
+    try:
+        call(*args)
+    except ImportError as e:
+        assert package in str(e), (package, e)
+    else:
+        raise AssertionError(f"{call.__name__} did not raise ImportError")
+"""
+
 
 def test_slice_imports_without_jax_h5py_yaml_matplotlib():
     code = "\n".join([
@@ -103,6 +155,7 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         "oisat_tpu_torch.oisatgmi",
         _REGRID,
         _STAGED,
+        _JOB,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
         "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",

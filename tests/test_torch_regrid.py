@@ -251,8 +251,8 @@ def _assert_full_oi_parity(pobj, jobj, tol):
 
 def test_analyze_month_fused_refuses_what_is_not_ported(monkeypatch):
     """What still raises NotImplementedError: the matrix-free full OI above
-    the dense limit (with and without a Desroziers pass) and the file I/O
-    methods; Desroziers itself now runs."""
+    the dense limit (with and without a Desroziers pass) and the job runner's
+    ``mesh_devices``; Desroziers and the file I/O methods now run."""
     pobj, _ = _month_pair(monkeypatch, n=1)
     month = ("OMI", "NO2", "2019-07-01", "2019-08-01")
     pobj.analyze_month_fused(*month, desroziers_iterations=1)
@@ -262,9 +262,14 @@ def test_analyze_month_fused_refuses_what_is_not_ported(monkeypatch):
                      (dict(oi_method="full", desroziers_iterations=1), "item 10")):
         with pytest.raises(NotImplementedError, match=what):
             pobj.analyze_month_fused(*month, **kw)
-    for method in ("read_data", "write_to_nc", "reporting", "save_state", "load_state"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            getattr(pobj, method)()
+    from oisat_tpu_torch.run import job as port_job
+
+    ctrl = {"ctm_error": 50.0, "mesh_devices": 4}
+    with pytest.raises(NotImplementedError, match="item 13"):
+        port_job._analyze(pobj, ctrl, *month, savedaily=("x", "y"))
+    assert not hasattr(pobj, "_not_ported")
+    fields = pobj._diag_fields()  # the file I/O methods work on this session
+    assert list(fields)[:2] == ["sat_averaged_vcd", "ctm_averaged_vcd_prior"]
     with pytest.raises(ValueError, match="oi_method"):
         pobj.analyze_month_fused(*month, oi_method="cg")
     empty = copy.copy(pobj)
