@@ -112,6 +112,25 @@ Phases (any failure raises, exit code != 0):
     ``load_state`` -> ``average`` -> ``oi``) runs where h5py is installed;
     where it is not, one line says that the CPU tests hold it.
 
+13. The matrix-free full OI (L = 300 km; the branch of ``oi_full`` above
+    the dense limits, which launches neither kernel: both counts are held
+    at 0).  (a) Phase 8's staged MOPITT session through ``oi("MOPITT",
+    method="full")``: 64,261 valid cells padded to 64,512, the SLQ knee,
+    the Nystrom PCG (k = 2,048), the Woodbury diagonal, the sampled
+    float64 residual; solver, preconditioner, finite residuals, a finite
+    posterior, -0.05 < AK < 1.05 and err >= 0, and a warm repeat through
+    ``oi_full`` bitwise equal, with its stage split.  (b) 60 orbits over
+    North America (20-60 N x 140-60 W, 10,449 cells) through
+    ``analyze_month_fused(oi_method="full")``: the SLQ knee and the exact
+    float64 solve on the card ("direct_f64_dev", exact diagonal, residual
+    under the gate), a warm repeat bitwise equal, and the float32 Nystrom
+    PCG on the same inputs and factor within twice its ``resid_abs`` of the
+    direct increment.  (c) The SLQ curve on phase 7's CONUS cells within
+    rtol 0.04 of the dense scan's, and the Jacobi branch on a 64 x 64
+    one-degree window against the dense solve (tests/test_oi_full.py's
+    bounds).  Then one ``_b_matmat`` sweep at 13a's shape, K = 8 and 16,
+    beside its operations bound.
+
 Each new month logs its wall seconds, the stage split (one stage per driver
 method), the regrid seconds per granule, the host<->device copies of the
 staged path and the peak device memory.
@@ -1159,10 +1178,277 @@ def phase_job_conus(dev, oi_scan, cov, full, grid):
     return 1, 1
 
 
+def kernel_counts(oi_scan, cov) -> tuple:
+    return oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches
+
+
+@contextlib.contextmanager
+def knees_picked():
+    """The knee indices the matrix-free branch's SLQ curve gives while inside
+    (its ``info`` has no factor, as in the JAX package): a list that
+    ``oi_full.slq_knee`` appends to, restored on exit."""
+    from oisat_tpu_torch.ops import oi_full as full_oi
+
+    real = full_oi.slq_knee
+    seen: list = []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    full_oi.slq_knee = spy
+    try:
+        yield seen
+    finally:
+        full_oi.slq_knee = real
+
+
+def log_matfree(what: str, info: dict, first_s: float, warm_s: float, warm_ms: dict,
+                peak_gb: float, warned: bool, factor: float) -> None:
+    """One matrix-free month's numbers: the factor, the solve, numerics
+    against statistics, the wall and the stage split of the warm run."""
+    log(f"{what}: factor {factor:.1f}; solver {info['solver']}, precond {info['precond']}, "
+        f"cg_iters {info['cg_iters']}, cg_resid {info['cg_resid']:.3e}, f64_resid "
+        f"{info['f64_resid']:.3e}, exact_diag {info['exact_diag']}; resid_abs "
+        f"{info['resid_abs']:.3e} vs stat_norm {info['stat_norm']:.3e} "
+        f"({info['resid_abs'] / info['stat_norm']:.2e} of it); convergence WARNING "
+        f"{'printed' if warned else 'not printed'}")
+    log(f"{what}: first call {first_s:.3f} s, warm {warm_s:.3f} s (host clock); warm "
+        "oi_full = " + " + ".join(f"{k.split('.', 1)[1]} {v:.2f}" for k, v in warm_ms.items()
+                                  if k.startswith("oi_full.")) + " ms; peak device memory "
+        f"{peak_gb:.2f} GB")
+
+
+def phase_matfree_mopitt(dev, oi_scan, cov, mopitt, grid):
+    """Phase 13a: phase 8's staged MOPITT session (a copy: phases 11 and 12
+    read the original) through ``oi("MOPITT", method="full")``: 64,261 valid
+    cells padded to 64,512, above every dense limit and REFINE_MAX_CELLS, so
+    the SLQ knee, the Nystrom PCG (k = 2,048), the Woodbury diagonal and the
+    sampled float64 residual.  A warm repeat through ``oi_full`` gives its
+    stage split, the same solve and bitwise-equal fields.  Returns the
+    padded cells (``oi_full.Padded``) for the sweep's timing."""
+    from oisat_tpu_torch.ops.oi_full import compact, oi_full, pad_for_matfree
+
+    log("== phase 13: the matrix-free full OI (L = 300 km)")
+    obj = copy.copy(mopitt)
+    obj.stage_ms = {}
+    torch.cuda.reset_peak_memory_stats()
+    oi_scan.ak_curve_sums_kernel.launches = cov.build_covariance_kernel.launches = 0
+    # ---- the main path of this slice: the staged OI with oi_method full ----
+    with knees_picked() as knees:
+        t0 = time.perf_counter()
+        _, said = quietly(obj.oi, "MOPITT", error_ctm=50.0, method="full",
+                          length_scale_km=LENGTH_SCALE_KM)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    counts = kernel_counts(oi_scan, cov)
+    # ---- end of the main path ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts == (0, 0), f"13a: the matrix-free path launched {counts} (ak_curve, "
+          "covariance) kernels")
+    d = obj.oi_diagnostics
+    check(d.get("solver") == "pcg_f32" and d.get("precond") == "nystrom(k=2048)",
+          f"13a: solver {d.get('solver')} precond {d.get('precond')}")
+    check(np.isfinite(d["cg_resid"]) and np.isfinite(d["f64_resid"]),
+          f"13a: cg_resid {d['cg_resid']} f64_resid {d['f64_resid']}")
+    inputs = obj.full_oi_inputs(50.0, "MOPITT")
+    cp = compact(*inputs)
+    xa, y, err = obj.ctm_averaged_vcd, obj.sat_averaged_vcd, obj.sat_averaged_error
+    both = np.isfinite(xa) & np.isfinite(y) & np.isfinite(err) & (err > 0)
+    check(int(both.sum()) == cp.idx.size, f"13a: {both.sum()} valid cells vs {cp.idx.size}")
+    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI"):
+        check(np.isfinite(getattr(obj, name)[both]).all(),
+              f"13a: {name} not finite where prior, observation and error are")
+    ak = obj.ak_OI[both]
+    check(((ak > -0.05) & (ak < 1.05)).all() and (obj.error_OI[both] >= 0).all(),
+          f"13a: AK in [{ak.min():.4f}, {ak.max():.4f}], err min "
+          f"{obj.error_OI[both].min():.3e}")
+    warm_ms: dict = {}
+    with knees_picked() as warm_knees:
+        t0 = time.perf_counter()
+        warm = quietly(oi_full, *inputs, LENGTH_SCALE_KM, regularization_on=True,
+                       device=dev, stage_ms=warm_ms)[0]
+        warm_s = time.perf_counter() - t0
+    check(knees == warm_knees and len(knees) == 1, f"13a: knees {knees} then {warm_knees}")
+    for name, field in (("ctm_averaged_vcd_corrected", "xb"), ("ak_OI", "averaging_kernel"),
+                        ("increment_OI", "increment"), ("error_OI", "error")):
+        check(np.array_equal(getattr(obj, name), getattr(warm, field), equal_nan=True),
+              f"13a: the warm repeat's {field} is not bitwise the first call's")
+    for key in ("cg_iters", "cg_resid", "f64_resid", "solver", "precond", "stat_norm"):
+        check(warm.info[key] == d[key], f"13a: warm {key} {warm.info[key]} vs {d[key]}")
+    pv = pad_for_matfree(cp)
+    log(f"13a MOPITT month, oi_method full: {cp.idx.size} valid cells of {both.size}, padded "
+        f"to {pv.xa.size}; (ak_curve, covariance) launches {counts}: the matrix-free path "
+        "launches neither kernel; the warm repeat bitwise equal")
+    log_matfree("13a MOPITT month", d, first_s, warm_s, warm_ms, peak_gb, "WARNING" in said,
+                float(grid[knees[0]]))
+    return pv
+
+
+def phase_matfree_north_america(dev, oi_scan, cov) -> None:
+    """Phase 13b: 60 OMI-shaped orbits over North America (TEMPO's field of
+    regard, 20-60 N x 140-60 W, 81 x 129 = 10,449 cells) through
+    ``analyze_month_fused(oi_method="full")``: above the scan's dense limit,
+    under REFINE_MAX_CELLS once padded, so the SLQ knee and the exact float64
+    solve on the card.  ``oi_full_matfree(refine=0)`` (the float32 Nystrom
+    PCG) on the same compacted inputs and factor lands within twice its own
+    ``resid_abs`` of the direct increment."""
+    from oisat_tpu_torch.entry import NORTH_AMERICA, synthetic_regional_month
+    from oisat_tpu_torch.ops.oi_full import (DENSE_SCAN_MAX_CELLS, DEVICE_EXACT_RESID_GATE,
+                                             REFINE_MAX_CELLS, compact, oi_full_matfree,
+                                             pad_for_matfree, regularization_grid)
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    t0 = time.perf_counter()
+    orbits, ctm, lon2d, lat2d = synthetic_regional_month(N_ORBITS, seed=0, window=NORTH_AMERICA)
+    grans = [regrid_granule(1, 0.25, o, lon2d, lat2d, dev, flag_thresh=0.5) for o in orbits]
+    torch.cuda.synchronize()
+    del orbits
+    log(f"13b North America month: {N_ORBITS} orbits built and regridded onto "
+        f"{lat2d.shape} = {lat2d.size} cells in {time.perf_counter() - t0:.1f} s")
+    check(all(g is not None for g in grans), "13b: an orbit missed the window")
+    reader = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
+    torch.cuda.reset_peak_memory_stats()
+    oi_scan.ak_curve_sums_kernel.launches = cov.build_covariance_kernel.launches = 0
+    # ---- the main path of this slice: the fused month, oi_method full ----
+    with knees_picked() as knees:
+        obj, _, first_s, first_ms = full_month(reader, dev)
+    counts = kernel_counts(oi_scan, cov)
+    # ---- end of the main path ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts == (0, 0), f"13b: the matrix-free path launched {counts} kernels")
+    d = obj.oi_diagnostics
+    cp = compact(*obj.full_oi_inputs())
+    pv = pad_for_matfree(cp)
+    check(DENSE_SCAN_MAX_CELLS < cp.idx.size and pv.xa.size <= REFINE_MAX_CELLS,
+          f"13b: {cp.idx.size} cells (padded {pv.xa.size}) off the direct branch")
+    check(d.get("solver") == "direct_f64_dev" and d.get("exact_diag") is True,
+          f"13b: solver {d.get('solver')} exact_diag {d.get('exact_diag')}")
+    check(d["f64_resid"] <= DEVICE_EXACT_RESID_GATE, f"13b: f64_resid {d['f64_resid']}")
+    xa, y, so = obj.ctm_averaged_vcd, obj.sat_averaged_vcd, obj.sat_averaged_error
+    both = np.isfinite(xa) & np.isfinite(y) & np.isfinite(so) & (so > 0)
+    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI"):
+        check(np.isfinite(getattr(obj, name)[both]).all(), f"13b: {name} not finite")
+    with knees_picked() as warm_knees:
+        again, _, warm_s, warm_ms = full_month(reader, dev)
+    check(knees == warm_knees and len(knees) == 1, f"13b: knees {knees} then {warm_knees}")
+    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI"):
+        check(np.array_equal(getattr(obj, name), getattr(again, name), equal_nan=True),
+              f"13b: the warm repeat's {name} is not bitwise the first call's")
+    r = float(regularization_grid()[knees[0]])
+    ratio = 0.5 * xa[both] / so[both]
+    log(f"13b North America month: {cp.idx.size} valid cells padded to {pv.xa.size}, "
+        f"sigma_b/sigma_o median {np.median(ratio):.1f}; (ak_curve, covariance) launches "
+        f"{counts}; the warm repeat bitwise equal")
+    log_matfree("13b North America month", d, first_s, warm_s, warm_ms, peak_gb,
+                False, r)
+    log("13b first call: oi_full = " + " + ".join(
+        f"{k.split('.', 1)[1]} {v:.2f}" for k, v in first_ms.items() if k.startswith("oi_full."))
+        + " ms; analyze_month_fused stages " + " + ".join(
+        f"{k} {v:.2f}" for k, v in first_ms.items() if "." not in k) + " ms")
+
+    # the float32 Nystrom PCG on the same compacted inputs and factor
+    t0 = time.perf_counter()
+    _, _, inc_pcg, _, info = oi_full_matfree(
+        pv.xa, pv.y, pv.sb * np.sqrt(r), pv.so, pv.lat, pv.lon, LENGTH_SCALE_KM,
+        valid=pv.valid, refine=0, device=dev)
+    pcg_s = time.perf_counter() - t0
+    inc_direct = obj.increment_OI.ravel()[cp.idx] / cp.scale
+    gap = float(np.linalg.norm(inc_pcg[:cp.idx.size] - inc_direct))
+    check(gap <= 2.0 * info["resid_abs"], f"13b: the PCG increment is {gap:.3e} from the "
+          f"direct one, over twice its resid_abs {info['resid_abs']:.3e}")
+    log(f"13b cross-check: oi_full_matfree(refine=0) {info['solver']} {info['precond']}, "
+        f"{info['cg_iters']} iterations, f64_resid {info['f64_resid']:.3e}, {pcg_s:.3f} s; "
+        f"||inc_pcg - inc_direct|| {gap:.3e} <= 2 x resid_abs {info['resid_abs']:.3e}")
+
+
+def phase_matfree_vs_dense(dev, full, grid) -> None:
+    """Phase 13c: (i) the SLQ curve on phase 7's compacted CONUS cells against
+    the dense scan's curve (rtol 0.04; the two knees are logged, not held:
+    that regime's knee is rounding-sensitive); (ii) the Jacobi branch against
+    the dense solve on a 64 x 64 one-degree window with bench.bench_matfree's
+    mild fields (tests/test_oi_full.py's bounds)."""
+    from oisat_tpu_torch.ops.knee import kneedle_index_np
+    from oisat_tpu_torch.ops.oi_full import (compact, mean_ak_curve_slq, oi_full_dense,
+                                             oi_full_dense_scan, oi_full_matfree)
+
+    cp = compact(*full["direct"].full_oi_inputs())
+    vec = [torch.as_tensor(v.astype(np.float32), device=dev)
+           for v in (cp.xa, cp.y, cp.sb, cp.so, cp.lat, cp.lon)]
+    t0 = time.perf_counter()
+    slq = mean_ak_curve_slq((cp.lat, cp.lon), cp.sb, cp.so, grid, LENGTH_SCALE_KM,
+                            n_probes=64, device=dev)
+    slq_s = time.perf_counter() - t0
+    dense = oi_full_dense_scan(*vec, LENGTH_SCALE_KM, grid.astype(np.float32))[5]
+    dense = dense.cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(slq, dense, rtol=0.04, err_msg="13c SLQ vs dense scan curve")
+    log(f"13c (i) SLQ curve on the CONUS month's {cp.idx.size} cells (64 probes, "
+        f"{slq_s:.3f} s) within rtol 0.04 of the dense scan's (largest "
+        f"{float(np.max(np.abs(slq / dense - 1.0))):.2e}); knees: SLQ "
+        f"{grid[kneedle_index_np(grid, slq)]:.1f}, dense {grid[kneedle_index_np(grid, dense)]:.1f}")
+
+    # 31.5 S-31.5 N: the grid pitch stays above the 75 km cluster radius,
+    # so every cell is probed itself (as in tests/test_oi_full.py's domain)
+    lon, lat = np.meshgrid(np.arange(0.5, 64.0, 1.0), np.arange(-31.5, 32.0, 1.0))
+    rng = np.random.default_rng(0)
+    xa = np.abs(rng.normal(3, 1, lat.shape))
+    y = xa * rng.uniform(0.8, 1.3, lat.shape)
+    sigb = np.abs(rng.normal(1.0, 0.2, lat.shape))
+    sigo = np.abs(rng.normal(0.6, 0.1, lat.shape))
+    args = [a.ravel() for a in (xa, y, sigb, sigo, lat, lon)]
+    ref = oi_full_dense(*(torch.as_tensor(a.astype(np.float32), device=dev) for a in args),
+                        LENGTH_SCALE_KM)
+    ref = [r.cpu().numpy().astype(np.float64) for r in ref]
+    t0 = time.perf_counter()
+    xb, ak, inc, err, info = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi",
+                                             probe_sep_factor=6.0, cg_tol=1e-7, device=dev)
+    jac_s = time.perf_counter() - t0
+    np.testing.assert_allclose(xb, ref[0], rtol=2e-4, atol=2e-4, err_msg="13c xb")
+    np.testing.assert_allclose(inc, ref[2], rtol=0, atol=5e-4, err_msg="13c increment")
+    np.testing.assert_allclose(ak, ref[1], rtol=0, atol=2e-3, err_msg="13c AK")
+    np.testing.assert_allclose(err, ref[3], rtol=0, atol=2e-3, err_msg="13c err")
+    log(f"13c (ii) Jacobi matrix-free vs dense on {lat.size} cells: {info['ncolors']} colours "
+        f"in {info['nchunks']} chunk(s), {info['cg_iters']} iterations, cg_resid "
+        f"{info['cg_resid']:.2e}, {jac_s:.3f} s; largest |diff| xb "
+        f"{np.max(np.abs(xb - ref[0])):.2e}, inc {np.max(np.abs(inc - ref[2])):.2e}, AK "
+        f"{np.max(np.abs(ak - ref[1])):.2e}, err {np.max(np.abs(err - ref[3])):.2e}")
+
+
+def phase_sweep(dev, pv) -> list:
+    """One ``_b_matmat`` sweep on 13a's padded cells (N = 64,512), K = 8 and
+    16 (CUDA events, warm) beside its operations bound: N^2 * 10 elementwise
+    operations (3 sub, 3 mul, 2 add, 1 scale, 1 exp) + 2 N^2 K for the
+    contraction, over the card's float32 peak."""
+    from oisat_tpu_torch.ops.oi_full_matfree import _b_matmat, _unit_vectors
+
+    n = pv.xa.size
+    rng = np.random.default_rng(4)
+    u3 = _unit_vectors(pv.lat, pv.lon, dev)
+    sbt = torch.as_tensor(pv.sb.astype(np.float32), device=dev)
+    out = []
+    for k in (8, 16):
+        v = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024), reps=3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bms, by = bound_ms(4 * (3 * n + n + 2 * n * k), 10.0 * n * n + 2.0 * n * n * k,
+                           torch.float32)
+        out.append((k, ms, bms, by))
+        log(f"_b_matmat sweep N={n}, K={k}, block 1024 (CUDA events, warm): {ms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}), {ms / bms:.1f}x the bound; peak device memory "
+            f"{peak_gb:.2f} GB; nvidia-smi {smi_line()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
+        return 1
+    if importlib.util.find_spec("oisat_tpu_torch") is None:
+        print("chip_smoke: the port (oisat_tpu_torch) is not importable here: run it from "
+              "the root of the repository", file=sys.stderr)
         return 1
     from oisat_tpu_torch import native
     from oisat_tpu_torch.driver import oisatgmi
@@ -1359,6 +1645,7 @@ def main() -> int:
     # before phase 11 re-runs the OI of the staged session this is held to
     by_path["job_mopitt_staged"] = phase_job_mopitt(oi_scan, cov, mopitt, mopitt_job, regs_np)
     del mopitt_job
+    mopitt_cells = phase_matfree_mopitt(dev, oi_scan, cov, mopitt, regs_np)
     by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
                                                                     full["reader"])
     del mopitt
@@ -1369,6 +1656,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["job_omi_fallback_staged"], cov_job = phase_job_conus(dev, oi_scan, cov, full,
                                                                   regs_np)
+    phase_matfree_north_america(dev, oi_scan, cov)
+    phase_matfree_vs_dense(dev, full, regs_np)
+    phase_sweep(dev, mopitt_cells)
     curve_entry["launches"] = sum(by_path.values())
     curve_entry["launches_by_path"] = by_path
     # the same kernel held against its plain version at the other months' shapes

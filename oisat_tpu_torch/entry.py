@@ -9,9 +9,10 @@
   tracks spread over the globe, and a 72-level CTM as a 3-hourly mean
   diurnal cycle.  Host
   numpy only; ``chip_smoke.py`` regrids and analyses it.
-* :func:`synthetic_regional_month` builds the same kind of month on the
-  CONUS window of that grid (:func:`conus_window`, 5,643 cells) in
-  physical units, with observation errors in the production regime of the
+* :func:`synthetic_regional_month` builds the same kind of month on a
+  window of that grid (:func:`conus_window`: by default CONUS, 5,643 cells;
+  ``NORTH_AMERICA``, TEMPO's field of regard, 10,449 cells) in physical
+  units, with observation errors in the production regime of the
   full-covariance OI (``oi_method="full"``).
 * :func:`synthetic_mopitt_month`, :func:`synthetic_gosat_month` and
   :func:`synthetic_ssmis_month` build months of the other granule kinds at
@@ -36,8 +37,10 @@ __all__ = ["entry", "synthetic_full_month", "merra2_gmi_grid", "synthetic_orbit"
            "synthetic_mopitt_day", "synthetic_mopitt_month", "synthetic_gosat_day",
            "synthetic_gosat_month", "synthetic_ssmis_map", "synthetic_ssmis_month"]
 
-# the CONUS analysis window: 24-52 N x 128-66 W
+# analysis windows (south, north, west, east): CONUS, 24-52 N x 128-66 W;
+# North America as TEMPO's field of regard, 20-60 N x 140-60 W
 CONUS = (24.0, 52.0, -128.0, -66.0)
+NORTH_AMERICA = (20.0, 60.0, -140.0, -60.0)
 
 
 def synthetic_full_month(device, G=4, Ls=6, Lc=12, H=16, W=24, seed=0):
@@ -156,12 +159,15 @@ def synthetic_month(n_orbits=60, seed=0):
     return orbits, synthetic_ctm(lon2d, lat2d, seed=seed), lon2d, lat2d
 
 
-def conus_window():
+def conus_window(window=CONUS):
     """(lon2d, lat2d): the rows and columns of :func:`merra2_gmi_grid` in
-    ``CONUS`` (24-52 N x 128-66 W), 57 x 99 = 5,643 cells -- under the
-    full-covariance scan's 6,144-cell dense limit and close to it."""
+    ``window`` (south, north, west, east in degrees).  The default ``CONUS``
+    (24-52 N x 128-66 W) gives 57 x 99 = 5,643 cells -- under the
+    full-covariance scan's 6,144-cell dense limit and close to it;
+    ``NORTH_AMERICA`` (20-60 N x 140-60 W) 81 x 129 = 10,449 cells, which the
+    matrix-free path solves exactly in float64."""
     lon2d, lat2d = merra2_gmi_grid()
-    lat_s, lat_n, lon_w, lon_e = CONUS
+    lat_s, lat_n, lon_w, lon_e = window
     rows = (lat2d[:, 0] >= lat_s) & (lat2d[:, 0] <= lat_n)
     cols = (lon2d[0] >= lon_w) & (lon2d[0] <= lon_e)
     return lon2d[np.ix_(rows, cols)], lat2d[np.ix_(rows, cols)]
@@ -179,14 +185,14 @@ REGIONAL_ERROR_MEAN = 0.1
 
 
 def synthetic_regional_month(n_orbits=60, seed=0, ny=1644, nx=60, nz=35, nz_ctm=72,
-                             error_mean=REGIONAL_ERROR_MEAN):
-    """(orbits, ctm, ctm_lon2d, ctm_lat2d) on the host for the CONUS window:
-    ``n_orbits`` OMI-shaped orbits (``ny`` x ``nx`` pixels pole to pole,
-    ``nz`` levels) whose tracks cross the window, spread over its
-    longitudes and over days 1-28 of July 2019, with the pixel uncertainty
-    ``error_mean``, and the ``nz_ctm``-level, 8-snapshot CTM on the
-    window."""
-    lon2d, lat2d = conus_window()
+                             error_mean=REGIONAL_ERROR_MEAN, window=CONUS):
+    """(orbits, ctm, ctm_lon2d, ctm_lat2d) on the host for ``window`` (see
+    :func:`conus_window`; CONUS by default): ``n_orbits`` OMI-shaped orbits
+    (``ny`` x ``nx`` pixels pole to pole, ``nz`` levels) whose tracks cross
+    the window, spread over its longitudes and over days 1-28 of July 2019,
+    with the pixel uncertainty ``error_mean``, and the ``nz_ctm``-level,
+    8-snapshot CTM on the window."""
+    lon2d, lat2d = conus_window(window)
     lon_w, lon_e = float(lon2d.min()), float(lon2d.max())
     centers = np.linspace(lon_w + 4.0, lon_e - 4.0, n_orbits)
     orbits = [synthetic_orbit(seed + 1 + i, c, ny=ny, nx=nx, nz=nz, day=1 + i % 28,

@@ -98,7 +98,7 @@ def main(argv=None):
     if args.mesh > 1:
         raise NotImplementedError(
             f"--mesh {args.mesh} needs the multi-GPU path, which is not ported "
-            "(ROADMAP queue 1 item 13)")
+            "(ROADMAP queue 1 item 6 (multi-GPU))")
     device = default_device(args.device)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

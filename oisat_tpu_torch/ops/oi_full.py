@@ -1,7 +1,9 @@
 """Full-covariance OI, ``K = B (B + R)^-1`` with distance-decay B, on torch.
 
-Counterpart of the dense branch of :mod:`oisat_tpu.ops.oi_full` (the
-``oi_method: full`` analysis).  With H = I on the analysis grid:
+Counterpart of :mod:`oisat_tpu.ops.oi_full` (the ``oi_method: full``
+analysis): its dense solves, exact float64 tail and grid front end are
+here, its matrix-free half in :mod:`oisat_tpu_torch.ops.oi_full_matfree`.
+With H = I on the analysis grid:
 
     A  = B + R                      (R = diag(sigma_o^2))
     w  = A^-1 (y - xa)              (Cholesky solve)
@@ -32,7 +34,14 @@ What replaces what:
   the JAX seed, so it samples the same rows.
 * :func:`oi_full` is the grid front end: the same validity rule, y < 0
   clamp, one-scale normalisation, compaction, conditioning gate and
-  scatter-back.
+  scatter-back.  Above ``DENSE_SCAN_MAX_CELLS`` (with the scan) or
+  ``DENSE_MAX_CELLS`` (without) valid cells it takes :func:`_oi_full_large`:
+  the SLQ knee and the matrix-free solve of the sibling module
+  :mod:`oisat_tpu_torch.ops.oi_full_matfree`, whose public names this
+  module re-exports.
+* ``OISAT_EXACT_DEVICE=0`` (explicit opt-out only) takes the host LAPACK
+  float64 solve (:func:`_direct_solve_f64`, :func:`_diag_pack_from_factor`)
+  instead of the device tail.
 
 TPU workarounds dropped: the padding of N to 128 lanes (the kernel masks
 its ragged edge), the ``EXACT_TAIL_BUCKET`` padding of the tail (there is
@@ -40,13 +49,9 @@ no per-shape remote compile to amortise, so the last diagonal block may be
 ragged and ``n % diag_block`` is not required) and the ``0 * x`` token that
 serialised the tail's blocks (PyTorch runs them in order on one stream).
 
-Deliberately absent, and raising ``NotImplementedError`` naming ROADMAP
-queue 1 item 10: the matrix-free path (``_oi_full_large``: CG, Nystrom,
-Lanczos/SLQ, colouring) above ``DENSE_MAX_CELLS`` / ``DENSE_SCAN_MAX_CELLS``
-valid cells, and the host LAPACK opt-out ``OISAT_EXACT_DEVICE=0``
-(``_direct_solve_f64`` / ``_diag_pack_from_factor``).  There is no silent
-fallback: a tail that fails (non-finite output, or a sampled residual
-above ``DEVICE_EXACT_RESID_GATE``) raises.
+There is no silent fallback: a device tail that fails (non-finite output,
+or a sampled residual above ``DEVICE_EXACT_RESID_GATE``) raises, where the
+JAX package re-solves on the host.
 """
 
 from __future__ import annotations
@@ -62,21 +67,32 @@ from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, build_covariance
 from oisat_tpu_torch.ops.knee import kneedle_index_np
 from oisat_tpu_torch.ops.oi import regularization_grid
+from oisat_tpu_torch.ops.oi_full_matfree import (  # the twin's names, importable here too
+    NYSTROM_MIN_CELLS,
+    REFINE_MAX_CELLS,
+    _sphere_points,
+    mean_ak_curve_slq,
+    oi_full_matfree,
+)
 from oisat_tpu_torch.utils.stages import StageClock
 
 __all__ = ["OIFullResult", "oi_full", "oi_full_dense", "oi_full_dense_scan",
-           "DENSE_MAX_CELLS", "DENSE_SCAN_MAX_CELLS", "DEVICE_EXACT_RESID_GATE"]
+           "oi_full_matfree", "mean_ak_curve_slq", "DENSE_MAX_CELLS",
+           "DENSE_SCAN_MAX_CELLS", "REFINE_MAX_CELLS", "NYSTROM_MIN_CELLS",
+           "DEVICE_EXACT_RESID_GATE"]
 
 # The JAX package's limits, kept so both packages take the same branch at
 # every n (they were sized for a 16 GB TPU; re-deriving them for 80 GB
-# waits for the matrix-free path, ROADMAP queue 1 item 10).
+# waits for the port's bench, ROADMAP queue 1 item 3.8).
 DENSE_MAX_CELLS = 10_240
 DENSE_SCAN_MAX_CELLS = 6_144
 EXACT_DIAG_BLOCK = 2048  # identity columns per trailing solve of the tail
 DEVICE_EXACT_RESID_GATE = 1e-5  # the JAX acceptance bar for the tail's
 # host-f64 row-sampled true residual; true float64 lands orders below it
 TIGHT_CONDITIONING = 1e4  # (max sb sqrt(r) / min so)^2 above which the tail runs
-_NOT_PORTED = "ROADMAP queue 1 item 10"
+MATFREE_BLOCK = 1024  # rows of a covariance sweep's tile on the matrix-free path
+SLQ_PROBES, SLQ_STEPS = 8, 60  # the matrix-free knee's probes and Lanczos steps
+CG_WARN_RESID = 1e-4  # relative residual above which the convergence warning may print
 _UNTIMED = StageClock(None, "cpu")
 
 
@@ -183,14 +199,6 @@ def oi_full_dense_scan(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float
 # the exact float64 tail
 # ---------------------------------------------------------------------------
 
-def _sphere_points(lat, lon):
-    """(N, 3) float64 unit vectors of degree coordinates (numpy)."""
-    lat_r = np.deg2rad(np.asarray(lat, np.float64))
-    lon_r = np.deg2rad(np.asarray(lon, np.float64))
-    cl = np.cos(lat_r)
-    return np.column_stack([cl * np.cos(lon_r), cl * np.sin(lon_r), np.sin(lat_r)])
-
-
 def _kernel_block_f64(u3_64, s, e, kappa: float, out=None, full=None):
     """Rows [s:e) of the float64 correlation kernel exp(kappa (u.u - 1))
     against the columns of ``full`` (default ``u3_64``), numpy; the argument
@@ -269,21 +277,103 @@ def _sampled_resid_f64(u3_64, sb_64, so2_64, x64, d64, kappa: float,
     return float(np.sqrt(n / m) * np.linalg.norm(r_rows)) / dn if dn > 0 else 0.0
 
 
+def _exact_device_wanted() -> bool:
+    """``OISAT_EXACT_DEVICE=0`` opts out of the device tail (the host LAPACK
+    float64 solve then serves)."""
+    return os.environ.get("OISAT_EXACT_DEVICE", "1") != "0"
+
+
+def _direct_solve_f64(u3_64, sb_64, so2_64, d64, kappa: float, row_block: int = 512,
+                      want_diag: bool = False):
+    """The host float64 innovation solve of ``OISAT_EXACT_DEVICE=0``, as the
+    twin's: the dense kernel built in row blocks, scaled in place to
+    ``A = D_b G D_b + D_o^2``, Cholesky-factored in place (LAPACK through
+    scipy), solved.  ``want_diag`` also returns ``(diag(A^-1),
+    diag(B A^-1 B))`` from the same factor.  Returns ``(x64, pack_or_None)``,
+    or ``(None, None)`` when the factorization fails."""
+    import scipy.linalg as sla
+
+    n = u3_64.shape[0]
+    g = np.empty((n, n))
+    for s in range(0, n, row_block):
+        _kernel_block_f64(u3_64, s, min(s + row_block, n), kappa, out=g[s:min(s + row_block, n)])
+    g *= sb_64[None, :]
+    g *= sb_64[:, None]
+    g[np.arange(n), np.arange(n)] += so2_64
+    try:
+        # g is symmetric: g.T is an F-contiguous view LAPACK factors in place
+        c = sla.cho_factor(g.T, lower=True, overwrite_a=True, check_finite=False)
+        x = sla.cho_solve(c, d64, check_finite=False)
+    except np.linalg.LinAlgError:
+        return None, None
+    if not want_diag:
+        return x, None
+    dainv, q = _diag_pack_from_factor(c[0], so2_64)
+    return x, None if dainv is None else (dainv, q)
+
+
+def _diag_pack_from_factor(l_lower, so2_64, blk: int = 512):
+    """``(diag(A^-1), diag(B A^-1 B))`` from a lower Cholesky factor L, as the
+    twin's: the strict row sums of squares of L before an in-place ``dtrtri``,
+    then the column sums of squares of L^-1, masked block-wise (no (n, n)
+    ``tril`` copy), combined in the cancellation-free form
+
+        q_j = sum_{k<j} L[j,k]^2 + (L[j,j] - so2_j / L[j,j])^2 + so2_j^2 sum_{k>j} Linv[k,j]^2.
+
+    Returns ``(None, None)`` if the triangular inversion fails (the twin
+    returns a bare None there)."""
+    from scipy.linalg import lapack
+
+    n = l_lower.shape[0]
+    d_l = np.ascontiguousarray(np.diagonal(l_lower)).copy()
+    rowsq = np.zeros(n)
+    for j0 in range(0, n, blk):
+        j1 = min(j0 + blk, n)
+        head = np.tril(np.ascontiguousarray(l_lower[j0:j1, j0:j1]), -1)
+        rowsq[j0:j1] += np.einsum("ij,ij->i", head, head)
+        below = l_lower[j1:, j0:j1]
+        if below.size:
+            rowsq[j1:] += np.einsum("ij,ij->i", below, below)
+    linv, info = lapack.dtrtri(l_lower, lower=1, overwrite_c=1)
+    if info != 0:
+        return None, None
+    dainv = np.empty(n)
+    off = np.empty(n)
+    for j0 in range(0, n, blk):
+        j1 = min(j0 + blk, n)
+        head = np.tril(np.ascontiguousarray(linv[j0:j1, j0:j1]), -1)
+        s = np.einsum("ij,ij->j", head, head)
+        below = linv[j1:, j0:j1]
+        if below.size:
+            s += np.einsum("ij,ij->j", below, below)
+        off[j0:j1] = s
+        dainv[j0:j1] = s + 1.0 / d_l[j0:j1] ** 2
+    so2 = np.asarray(so2_64, np.float64)
+    return dainv, rowsq + (d_l - so2 / d_l) ** 2 + so2 * so2 * off
+
+
 def _exact_tail_solve(sbv, sov, d64, lat, lon, length_scale_km: float, device,
                       diag_block: int = EXACT_DIAG_BLOCK, clock: StageClock = _UNTIMED):
-    """The exact tail on ``device`` for compacted float64 host vectors:
-    returns (x64, (diag_ainv, q), f64_resid) as numpy.  Raises when the
-    result is not finite or its sampled residual exceeds the gate.
-    ``clock`` marks the stages "tail" (the device solve and its pull) and
-    "tail_resid" (the host residual check)."""
-    if os.environ.get("OISAT_EXACT_DEVICE", "1") == "0":
-        raise NotImplementedError(
-            "OISAT_EXACT_DEVICE=0 (the host LAPACK exact solve) is not ported; "
-            f"the port solves the exact tail on the device: {_NOT_PORTED}")
-    dev = resolve_device(device)
+    """The exact tail for float64 host vectors: returns (x64, pack, f64_resid,
+    solver) with ``pack = (diag_ainv, q)`` (None where the host triangular
+    inversion failed) as numpy and ``solver`` "direct_f64_dev" (the device
+    tail on ``device``) or "direct_f64" (the host LAPACK solve of
+    ``OISAT_EXACT_DEVICE=0``).  The device tail raises when its result is not
+    finite or its sampled residual exceeds the gate; the host solve raises
+    when its factorization fails.  ``clock`` marks the stages "tail" (the
+    solve and its pull) and "tail_resid" (the host residual check)."""
     kappa = (EARTH_RADIUS_KM / float(length_scale_km)) ** 2
     u3_64 = _sphere_points(lat, lon)
     so2 = sov ** 2
+    if not _exact_device_wanted():
+        x64, pack = _direct_solve_f64(u3_64, sbv, so2, d64, kappa, want_diag=True)
+        clock.mark("tail")
+        if x64 is None:
+            raise FloatingPointError("oi_full: the host float64 factorization failed")
+        rr = _sampled_resid_f64(u3_64, sbv, so2, x64, d64, kappa)
+        clock.mark("tail_resid")
+        return x64, pack, rr, "direct_f64"
+    dev = resolve_device(device)
 
     def t64(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
@@ -299,7 +389,7 @@ def _exact_tail_solve(sbv, sov, d64, lat, lon, length_scale_km: float, device,
     if not rr <= DEVICE_EXACT_RESID_GATE:
         raise FloatingPointError(f"oi_full: the exact tail's sampled float64 residual "
                                  f"{rr:.3e} exceeds the gate {DEVICE_EXACT_RESID_GATE:g}")
-    return x64, (dainv, q), rr
+    return x64, (dainv, q), rr, "direct_f64_dev"
 
 
 # ---------------------------------------------------------------------------
@@ -359,21 +449,28 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
             regularization_on: bool = False, *, device="cuda", cov_impl: str = "auto",
             stage_ms: dict | None = None):
     """Grid-shaped full-covariance OI on ``device`` (the card unless the
-    caller asks for the CPU): compaction, normalisation, the dense solve
-    (``regularization_on``: with the 99-factor scan), the conditioning-gated
-    float64 exact tail, and scatter-back to float64 numpy grids (NaN off the
-    valid cells).  ``info`` is None unless the tail ran; then it holds
-    ``solver`` ("dense+direct_f64_dev"), ``reg`` (the chosen factor),
-    ``f64_resid`` and ``exact_diag``.  ``cov_impl`` picks the covariance
-    engine (see :data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`).
-    With a ``stage_ms`` dict, the wall milliseconds of each stage (the device
-    synchronised at each stage's end) are added to it under "oi_full.<stage>":
-    compact, covariance, eigh, scan_gemms, knee, update (or dense_solve),
-    pull, tail, tail_resid, scatter; they sum to the call's wall time.
+    caller asks for the CPU): compaction, normalisation, the solve, and
+    scatter-back to float64 numpy grids (NaN off the valid cells).
+    ``cov_impl`` picks the covariance engine of the dense branch (see
+    :data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`).
 
-    Above ``DENSE_SCAN_MAX_CELLS`` (with the scan) or ``DENSE_MAX_CELLS``
-    (without) valid cells it raises NotImplementedError: the matrix-free path
-    is not ported."""
+    Up to ``DENSE_SCAN_MAX_CELLS`` (``regularization_on``: the 99-factor
+    scan) or ``DENSE_MAX_CELLS`` (without) valid cells: the dense solve and
+    the conditioning-gated float64 exact tail; ``info`` is None unless the
+    tail ran, then ``solver`` ("dense+direct_f64_dev", or "dense+direct_f64"
+    under ``OISAT_EXACT_DEVICE=0``), ``reg``, ``f64_resid`` and
+    ``exact_diag``.  Above: :func:`_oi_full_large` (the SLQ knee and
+    :func:`oi_full_matfree`), whose ``info`` has the solver's keys plus
+    ``stat_norm``, with ``resid_abs`` and ``stat_norm`` in the fields'
+    physical units.
+
+    With a ``stage_ms`` dict, the wall milliseconds of each stage (the device
+    synchronised at each stage's end) are added to it under "oi_full.<stage>"
+    and sum to the call's wall time: compact, then covariance, eigh,
+    scan_gemms, knee, update (or dense_solve), pull, tail, tail_resid on the
+    dense branch, or slq, nystrom, pcg, refine, tail, tail_resid, diag,
+    coloring, probe (those the solve reaches) on the matrix-free one, then
+    scatter."""
     dev = resolve_device(device)
     clock = StageClock(stage_ms, dev, prefix="oi_full.")
     cp = compact(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d)
@@ -381,17 +478,41 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     if n == 0:
         nanf = np.full(cp.shape, np.nan)
         return OIFullResult(nanf, nanf.copy(), nanf.copy(), nanf.copy())
-    limit = DENSE_SCAN_MAX_CELLS if regularization_on else DENSE_MAX_CELLS
-    if n > limit:
-        raise NotImplementedError(
-            f"oi_full: {n} valid cells exceed the dense limit {limit}; the "
-            f"matrix-free path is not ported yet: {_NOT_PORTED}")
+
+    def scatter(v, s=1.0):
+        out = np.full(int(np.prod(cp.shape)), np.nan)
+        out[cp.idx] = v * s
+        return out.reshape(cp.shape)
+
+    if n > (DENSE_SCAN_MAX_CELLS if regularization_on else DENSE_MAX_CELLS):
+        clock.mark("compact")
+        xb_v, ak_v, inc_v, err_v, info = _oi_full_large(
+            cp, float(length_scale_km), regularization_on, dev, clock)
+        # the solver saw normalised fields: the two field-scaled numbers
+        # leave in physical units (the relative cg_resid is scale-free)
+        for key in ("resid_abs", "stat_norm"):
+            if info.get(key) is not None:
+                info[key] = info[key] * cp.scale
+    else:
+        xb_v, ak_v, inc_v, err_v, info = _oi_full_dense_branch(
+            cp, float(length_scale_km), regularization_on, dev, cov_impl, clock)
+    res = OIFullResult(scatter(xb_v, cp.scale), scatter(ak_v), scatter(inc_v, cp.scale),
+                       scatter(err_v, cp.scale), info)
+    clock.mark("scatter")
+    return res
+
+
+def _oi_full_dense_branch(cp: Compacted, length_scale_km: float, regularization_on: bool,
+                          dev, cov_impl: str, clock: StageClock):
+    """The dense solve of the compacted cells and, at tight conditioning,
+    the exact float64 tail: (xb, ak, increment, err, info) as compacted
+    numpy vectors in the normalised units."""
 
     def take(a):
         return torch.as_tensor(a.astype(np.float32), device=dev)
 
     args = (take(cp.xa), take(cp.y), take(cp.sb), take(cp.so), take(cp.lat),
-            take(cp.lon), float(length_scale_km))
+            take(cp.lon), length_scale_km)
     clock.mark("compact")
     if regularization_on:
         grid = regularization_grid()
@@ -412,23 +533,90 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     info = None
     if (np.max(sbv) / np.min(sov)) ** 2 > TIGHT_CONDITIONING:
         d64 = cp.y - cp.xa
-        x64, pack, rr = _exact_tail_solve(sbv, sov, d64, cp.lat, cp.lon,
-                                          length_scale_km, dev, clock=clock)
+        x64, pack, rr, how = _exact_tail_solve(sbv, sov, d64, cp.lat, cp.lon,
+                                               length_scale_km, dev, clock=clock)
         inc_v = d64 - sov ** 2 * x64
         xb_v = cp.xa + inc_v
-        sbd = _exact_sb_diag(sov ** 2, pack, sbv ** 2)
-        err_v = np.sqrt(sbd)
-        with np.errstate(invalid="ignore", divide="ignore"):
-            ak_v = 1.0 - sbd / (sbv ** 2)
-        info = {"solver": "dense+direct_f64_dev", "reg": r_chosen, "f64_resid": rr,
-                "exact_diag": True}
+        if pack is not None:  # else the float32 diagonal stands, as in the twin
+            sbd = _exact_sb_diag(sov ** 2, pack, sbv ** 2)
+            err_v = np.sqrt(sbd)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                ak_v = 1.0 - sbd / (sbv ** 2)
+        info = {"solver": "dense+" + how, "reg": r_chosen, "f64_resid": rr,
+                "exact_diag": pack is not None}
+    return xb_v, ak_v, inc_v, err_v, info
 
-    def scatter(v, s=1.0):
-        out = np.full(int(np.prod(cp.shape)), np.nan)
-        out[cp.idx] = v * s
-        return out.reshape(cp.shape)
 
-    res = OIFullResult(scatter(xb_v, cp.scale), scatter(ak_v), scatter(inc_v, cp.scale),
-                       scatter(err_v, cp.scale), info)
-    clock.mark("scatter")
-    return res
+class Padded(NamedTuple):
+    """The compacted cells padded to a sweep-block multiple as the
+    matrix-free branch takes them (sigma_b = 0 / sigma_o = 1 rows)."""
+
+    xa: np.ndarray
+    y: np.ndarray
+    sb: np.ndarray
+    so: np.ndarray
+    lat: np.ndarray
+    lon: np.ndarray
+    valid: np.ndarray
+
+
+def pad_for_matfree(cp: Compacted, block: int = MATFREE_BLOCK) -> Padded:
+    n = cp.idx.size
+    npad = int(np.ceil(n / block)) * block
+
+    def take(v, fill):
+        out = np.full(npad, fill)
+        out[:n] = v
+        return out
+
+    return Padded(take(cp.xa, 0.0), take(cp.y, 0.0), take(cp.sb, 0.0), take(cp.so, 1.0),
+                  take(cp.lat, 0.0), take(cp.lon, 0.0), np.arange(npad) < n)
+
+
+def slq_knee(pv: Padded, length_scale_km: float, device, block: int = MATFREE_BLOCK,
+             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS):
+    """(reg_index, curve): the Kneedle knee of the full-domain SLQ mean-AK
+    curve (:func:`mean_ak_curve_slq`) over the regularization grid."""
+    grid = regularization_grid()
+    curve = mean_ak_curve_slq((pv.lat, pv.lon), pv.sb, pv.so, grid, length_scale_km,
+                              block=block, n_probes=n_probes, m=m, valid=pv.valid,
+                              device=device)
+    with np.errstate(invalid="ignore"):
+        return int(kneedle_index_np(grid, curve, fallback=0)), curve
+
+
+def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
+                   clock: StageClock = _UNTIMED, block: int = MATFREE_BLOCK):
+    """The matrix-free branch of :func:`oi_full`, as the twin's
+    ``_oi_full_large``: the compacted cells padded to a ``block`` multiple;
+    with ``regularization_on`` the knee of the full-domain SLQ mean-AK curve
+    (:func:`slq_knee`) picks the factor r and sigma_b is scaled by sqrt(r);
+    then :func:`oi_full_matfree`.  Sets ``info["stat_norm"]`` (the
+    posterior-std norm) and prints the twin's WARNING when the solve did not
+    converge and its field-error bound ``resid_abs`` is not well under
+    ``stat_norm``.  Returns (xb, ak, increment, err, info), compacted, in the
+    normalised units."""
+    n = cp.idx.size
+    pv = pad_for_matfree(cp, block)
+    sb_v = pv.sb
+    if regularization_on:
+        reg_index, _ = slq_knee(pv, length_scale_km, dev, block)
+        # r B = (sqrt(r) sigma_b) C (sqrt(r) sigma_b)
+        sb_v = sb_v * np.sqrt(float(regularization_grid()[reg_index]))
+        clock.mark("slq")
+    xb_v, ak_v, inc_v, err_v, info = oi_full_matfree(
+        pv.xa, pv.y, sb_v, pv.so, pv.lat, pv.lon, length_scale_km, block=block,
+        valid=pv.valid, device=dev, clock=clock)
+    # numerics against statistics: the solve's field-error bound resid_abs
+    # against the posterior-std norm the analysis is determined to
+    stat = float(np.linalg.norm(err_v[:n]))
+    num = info.get("resid_abs")
+    info["stat_norm"] = stat
+    if info["cg_resid"] > CG_WARN_RESID and (num is None or num > 0.3 * stat):
+        print(f"WARNING: oi_full matrix-free CG did not fully converge "
+              f"(residual {info['cg_resid']:.2e} after {info['cg_iters']} "
+              f"iterations; field-error bound "
+              f"{f'{num:.2e}' if num is not None else 'n/a'} vs "
+              f"posterior-std norm {stat:.2e}); posterior fields are "
+              f"correspondingly approximate")
+    return xb_v[:n], ak_v[:n], inc_v[:n], err_v[:n], info

@@ -17,7 +17,7 @@ oisatgmi/interpolator.py:100-291, interpolator_ssmis.py:96-168) for
 The TPU package's transfer workarounds are not ported: no f16 narrowing,
 no plan compaction, no affine carrier level for the pressure stack, no
 pixel-axis buckets, no lazy/pending collection.  The SPMD mesh regrid is
-ROADMAP queue 1 item 13.
+ROADMAP queue 1 item 6 (multi-GPU).
 """
 
 from __future__ import annotations
@@ -173,12 +173,18 @@ def _granule_plan(sat_lon, sat_lat, lons_fine, lats_fine, grid_size: float,
     return plan
 
 
-def _quality_mask(quality_flag, flag_thresh: float) -> np.ndarray:
+def _quality_mask(quality_flag, flag_thresh: float, dtype=np.float32) -> np.ndarray:
     """QA mask as the reference builds it: 1.0 where flag > thresh else NaN
-    (interpolator.py:124-127), float32 like the regridded fields."""
-    m = (np.asarray(quality_flag) > flag_thresh).astype(np.float32)
+    (interpolator.py:124-127), in the regridded fields' ``dtype``."""
+    m = (np.asarray(quality_flag) > flag_thresh).astype(dtype)
     m[m != 1.0] = np.nan
     return np.squeeze(m)
+
+
+def _host_dtype(dtype):
+    """The numpy type of the host stack for a regrid's ``dtype``: float64 or
+    float32, as the JAX package's ``host_dtype``."""
+    return np.float64 if dtype == np.float64 else np.float32
 
 
 def _regrid_device_impl(batch, err, idx, w, mask, up_idx, up_w, up_mask,
@@ -239,12 +245,14 @@ def _run_regrid(plan, upsc, batch, err, device, square_err: bool):
 
 def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
                    ctm_lon2d: np.ndarray, ctm_lat2d: np.ndarray, device,
-                   flag_thresh: float = 0.75, fast_swath: bool = True):
+                   flag_thresh: float = 0.75, fast_swath: bool = True,
+                   dtype=np.float32):
     """Regrid one ``satellite_amf`` or ``satellite_opt`` granule (host numpy
     leaves) onto the CTM grid; returns a granule of the same kind whose
-    fields are float32 tensors on ``device``, or None when the granule
-    cannot be triangulated or misses the domain (reference
-    interpolator.py:151-155, :165-167).
+    fields are ``dtype`` (float32 or float64) tensors on ``device``, or None
+    when the granule cannot be triangulated or misses the domain (reference
+    interpolator.py:151-155, :165-167).  The host stack, the QA mask and the
+    device batch all follow ``dtype``, as in the JAX ``regrid_granule``.
 
     ``fast_swath`` takes the native structured-swath weight builder
     (production); ``False`` takes the scipy qhull/cKDTree builders that
@@ -266,7 +274,8 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
         return None
     upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
                          threshold_ctm, dev, method=4, far_factor=2.0, fast=fast_swath)
-    mask = _quality_mask(sat_data.quality_flag, flag_thresh)
+    host_dtype = _host_dtype(dtype)
+    mask = _quality_mask(sat_data.quality_flag, flag_thresh, host_dtype)
 
     names: list = []
     rows: list = []
@@ -304,8 +313,8 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
         add3d("apriori_profile", sat_data.apriori_profile)
 
     # cast first, then the QA multiply (mask is exactly 1.0 or NaN)
-    batch = np.stack([(np.asarray(r, np.float32) * mask).ravel() for r in rows])
-    err = (np.asarray(np.squeeze(sat_data.uncertainty), np.float32) * mask).ravel()[None]
+    batch = np.stack([(np.asarray(r, host_dtype) * mask).ravel() for r in rows])
+    err = (np.asarray(np.squeeze(sat_data.uncertainty), host_dtype) * mask).ravel()[None]
     out, out_err, hw = _run_regrid(plan, upsc, batch, err, dev, square_err=True)
     d = _finish_device_fields(out, out_err, tuple(names), hw)
 
@@ -339,10 +348,12 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
 
 
 def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
-                         ctm_lat2d: np.ndarray, device, fast_swath: bool = True):
+                         ctm_lat2d: np.ndarray, device, fast_swath: bool = True,
+                         dtype=np.float32):
     """The SSMIS variant (reference interpolator_ssmis.py:96-168): one
     ``satellite_ssmis`` granule (host numpy leaves) onto the CTM grid, its
-    ``vcd`` and ``uncertainty`` float32 tensors on ``device``.
+    ``vcd`` and ``uncertainty`` ``dtype`` (float32 or float64) tensors on
+    ``device``.
 
     Differences from :func:`regrid_granule`, as in the reference: no quality
     mask; the raw uncertainty (not its square) goes through the squared
@@ -364,9 +375,10 @@ def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
         return None
     upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
                          threshold_ctm, dev, method=1, far_factor=1.0, fast=fast_swath)
+    host_dtype = _host_dtype(dtype)
     out, out_err, hw = _run_regrid(
-        plan, upsc, np.asarray(sat_data.vcd, np.float32).ravel()[None],
-        np.asarray(sat_data.uncertainty, np.float32).ravel()[None], dev, square_err=False)
+        plan, upsc, np.asarray(sat_data.vcd, host_dtype).ravel()[None],
+        np.asarray(sat_data.uncertainty, host_dtype).ravel()[None], dev, square_err=False)
     return satellite_ssmis(
         vcd=out[0].reshape(hw),
         # the raw value through the squared kernel, no sqrt

@@ -14,7 +14,7 @@ so every ``run/control_*.yml`` runs unchanged.  What differs from the twin:
 * an optional ``device`` key names the device (default: the card; a job
   without one raises, and the CPU is used only when the key says ``cpu``);
 * ``mesh_devices`` other than absent / 1 raises ``NotImplementedError``:
-  the multi-GPU path is ROADMAP queue 1 item 13;
+  the multi-GPU path is ROADMAP queue 1 item 6 (multi-GPU);
 * the reader keywords are built by one helper (:func:`reader_kwargs`) for
   :func:`read_month` and :func:`run_month`;
 * there is no compile census: nothing is compiled per shape.
@@ -64,7 +64,7 @@ def month_setup(ctrl):
     if md and md != 1:
         raise NotImplementedError(
             f"mesh_devices: {md!r} needs the multi-GPU path, which is not ported "
-            "(ROADMAP queue 1 item 13); run with mesh_devices absent or 1")
+            "(ROADMAP queue 1 item 6 (multi-GPU)); run with mesh_devices absent or 1")
 
 
 def reader_kwargs(ctrl) -> dict:

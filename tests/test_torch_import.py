@@ -2,8 +2,9 @@
 imports nothing of the JAX package: every slice module (and chip_smoke.py)
 imports with those and ``oisat_tpu`` blocked in ``sys.modules``, and a CPU
 regrid through the port's native plan builder (whose import is lazy), a
-MOPITT-like staged month with a Desroziers pass and its daily files, and the
-job runner's dispatch with its diag fields run so blocked; a call that needs
+MOPITT-like staged month with a Desroziers pass and its daily files, the
+job runner's dispatch with its diag fields, and a full OI above a lowered
+dense limit (the SLQ knee and the matrix-free solve) run so blocked; a call that needs
 one of the absent packages raises ImportError naming it.  The port's copies of the JAX package's host plan builders
 give the JAX package's plans."""
 
@@ -26,6 +27,7 @@ SLICE_MODULES = [
     "oisat_tpu_torch.ops.kernels.covariance",
     "oisat_tpu_torch.ops.weights",
     "oisat_tpu_torch.ops.oi_full",
+    "oisat_tpu_torch.ops.oi_full_matfree",
     "oisat_tpu_torch.native",
     "oisat_tpu_torch.utils",
     "oisat_tpu_torch.utils.lru",
@@ -143,6 +145,18 @@ for call, args, package in ((read_nc, ("absent.nc", "x"), "h5py"),
         raise AssertionError(f"{call.__name__} did not raise ImportError")
 """
 
+# the matrix-free full OI: a 12 x 16 domain above a lowered dense limit
+_FULL = """
+from oisat_tpu_torch.ops import oi_full as T
+T.DENSE_SCAN_MAX_CELLS = 50
+rng = np.random.default_rng(3)
+lon2, lat2 = np.meshgrid(np.linspace(-10, 10, 16), np.linspace(30, 41, 12))
+xa = np.abs(rng.normal(3, 1, lat2.shape))
+res = T.oi_full(xa, xa * 1.1, 0.5 * xa, np.full(lat2.shape, 0.8), lat2, lon2, 300.0,
+                regularization_on=True, device="cpu")
+assert res.info["precond"] == "jacobi" and np.isfinite(res.xb).all()
+"""
+
 
 def test_slice_imports_without_jax_h5py_yaml_matplotlib():
     code = "\n".join([
@@ -156,6 +170,7 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         _REGRID,
         _STAGED,
         _JOB,
+        _FULL,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
         "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",

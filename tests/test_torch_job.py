@@ -344,9 +344,9 @@ def test_job_helpers_and_what_the_port_refuses(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     assert port_job.load_control() == jax_job.load_control() == ctrl
     for md in (2, "all"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
             port_job.run_month(dict(ctrl, mesh_devices=md), 2019, 7)
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
             port_job.read_month(dict(ctrl, mesh_devices=md), 2019, 7)
     with pytest.raises(ValueError, match="TEMPO months read per-hour"):
         port_job.read_month(dict(ctrl, sensor="TEMPO"), 2019, 7)
@@ -386,7 +386,7 @@ def test_job_without_a_card_raises_unless_the_cpu_is_named(tmp_path, monkeypatch
         synthetic_month.main(["--granules", "1", "--out", str(tmp_path / "demo")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         readjust(tmp_path, tmp_path / "out")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
         synthetic_month.main(["--mesh", "2", "--device", "cpu"])
 
 

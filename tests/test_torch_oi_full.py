@@ -262,17 +262,33 @@ def test_degenerate_cells_are_masked_not_poisoning():
 @pytest.mark.parametrize("reg_on,limit", [(True, "DENSE_SCAN_MAX_CELLS"),
                                           (False, "DENSE_MAX_CELLS")])
 def test_above_the_dense_limit_raises(monkeypatch, reg_on, limit):
+    """Above the dense limit nothing raises any more: both packages take
+    their matrix-free branch (the limit lowered in both) and agree within
+    the float32 CG's 1e-4 (tests/test_torch_oi_full_matfree.py); at the
+    limit both stay dense."""
     monkeypatch.setattr(T, limit, 50)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.oi_full(*_domain(8, 8), 300.0, regularization_on=reg_on, device="cpu")
-    T.oi_full(*_domain(5, 10), 300.0, regularization_on=reg_on, device="cpu")
+    monkeypatch.setattr(J, limit, 50)
+    args = _domain(8, 8)
+    port, ref = _pair(args, reg_on)
+    assert port.info["precond"] == ref.info["precond"] == "jacobi"
+    assert set(port.info) == set(ref.info)
+    for name in FIELDS:
+        _close(getattr(port, name), getattr(ref, name), 1e-4, name)
+    port, ref = _pair(_domain(5, 10), reg_on)
+    assert port.info is None and ref.info is None
 
 
 def test_host_opt_out_is_not_ported(monkeypatch):
+    """``OISAT_EXACT_DEVICE=0`` is ported: the tail is solved by the host
+    LAPACK factor, as in the JAX package ("dense+direct_f64"), to 1e-7;
+    a mild month needs no tail either way."""
     monkeypatch.setenv("OISAT_EXACT_DEVICE", "0")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.oi_full(*_domain(so=0.02), 300.0, device="cpu")
-    T.oi_full(*_domain(), 300.0, device="cpu")  # mild: no tail, no error
+    port, ref = _pair(_domain(so=0.02), False)
+    assert port.info["solver"] == ref.info["solver"] == "dense+direct_f64"
+    assert port.info["exact_diag"] and port.info["f64_resid"] < 1e-9
+    for name in FIELDS:
+        _close(getattr(port, name), getattr(ref, name), 1e-7, name)
+    assert T.oi_full(*_domain(), 300.0, device="cpu").info is None  # mild: no tail
 
 
 def test_a_failed_tail_raises_instead_of_falling_back(monkeypatch):

@@ -250,22 +250,32 @@ def _assert_full_oi_parity(pobj, jobj, tol):
 
 
 def test_analyze_month_fused_refuses_what_is_not_ported(monkeypatch):
-    """What still raises NotImplementedError: the matrix-free full OI above
-    the dense limit (with and without a Desroziers pass) and the job runner's
-    ``mesh_devices``; Desroziers and the file I/O methods now run."""
-    pobj, _ = _month_pair(monkeypatch, n=1)
+    """What still raises NotImplementedError: the job runner's
+    ``mesh_devices``.  The full OI above the dense limit (with and without a
+    Desroziers pass) now runs the matrix-free path and matches the JAX
+    package's; Desroziers and the file I/O methods run."""
+    pobj, jobj = _month_pair(monkeypatch, n=1)
     month = ("OMI", "NO2", "2019-07-01", "2019-08-01")
     pobj.analyze_month_fused(*month, desroziers_iterations=1)
     assert pobj.oi_diagnostics["desroziers_iterations"] == 1
+    from oisat_tpu.ops import oi_full as jax_oi_full
+
     monkeypatch.setattr(port_oi_full, "DENSE_SCAN_MAX_CELLS", 10)
-    for kw, what in ((dict(oi_method="full"), "item 10"),
-                     (dict(oi_method="full", desroziers_iterations=1), "item 10")):
-        with pytest.raises(NotImplementedError, match=what):
-            pobj.analyze_month_fused(*month, **kw)
+    monkeypatch.setattr(jax_oi_full, "DENSE_SCAN_MAX_CELLS", 10)
+    for kw in (dict(oi_method="full"), dict(oi_method="full", desroziers_iterations=1)):
+        pobj.analyze_month_fused(*month, **kw)
+        jobj.analyze_month_fused(*month, **kw)
+        assert pobj.oi_diagnostics["precond"] == jobj.oi_diagnostics["precond"] == "jacobi"
+        assert set(pobj.oi_diagnostics) == set(jobj.oi_diagnostics)
+        for name in ("ctm_averaged_vcd_corrected", "ak_OI", "error_OI"):
+            got, want = getattr(pobj, name), np.asarray(getattr(jobj, name), np.float64)
+            assert np.array_equal(np.isnan(got), np.isnan(want)), name
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.nanmax(np.abs(want)),
+                                       equal_nan=True, err_msg=name)
     from oisat_tpu_torch.run import job as port_job
 
     ctrl = {"ctm_error": 50.0, "mesh_devices": 4}
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
         port_job._analyze(pobj, ctrl, *month, savedaily=("x", "y"))
     assert not hasattr(pobj, "_not_ported")
     fields = pobj._diag_fields()  # the file I/O methods work on this session
@@ -514,3 +524,29 @@ def test_filler_gosatxch4_matches_jax(monkeypatch, with_ak):
     line = convert.satellite_opt_from(_gosat_soundings(n=5, with_ak=False))
     line.latitude_center = np.zeros(5)
     assert port_filler(5.0, line, "cpu", 0.5) is None
+
+
+def test_north_america_window_takes_the_exact_matrix_free_branch():
+    """chip_smoke.py phase 13b's window at a small depth: North America
+    (20-60 N x 140-60 W) on the MERRA2-GMI grid holds 81 x 129 = 10,449
+    cells, above the scan's dense limit and, padded to the sweep block,
+    under REFINE_MAX_CELLS (the exact float64 branch); the regional orbits
+    cross it.  The CONUS default is unchanged."""
+    from oisat_tpu_torch.entry import (CONUS, NORTH_AMERICA, conus_window, merra2_gmi_grid,
+                                       synthetic_regional_month)
+    from oisat_tpu_torch.ops.oi_full import (DENSE_SCAN_MAX_CELLS, MATFREE_BLOCK,
+                                             REFINE_MAX_CELLS)
+
+    lon2d, lat2d = conus_window(NORTH_AMERICA)
+    assert lat2d.shape == (81, 129) and lat2d.size == 10_449
+    npad = -(-lat2d.size // MATFREE_BLOCK) * MATFREE_BLOCK
+    assert DENSE_SCAN_MAX_CELLS < lat2d.size and npad == 11_264 <= REFINE_MAX_CELLS
+    glon, glat = merra2_gmi_grid()
+    assert np.isin(lat2d[:, 0], glat[:, 0]).all() and np.isin(lon2d[0], glon[0]).all()
+    assert np.array_equal(conus_window(CONUS)[0], conus_window()[0])
+    orbits, ctm, wlon, wlat = synthetic_regional_month(2, ny=400, nx=30, nz=6, nz_ctm=12,
+                                                       window=NORTH_AMERICA)
+    assert np.array_equal(wlat, lat2d) and ctm.pressure_mid.shape == (8, 12, 81, 129)
+    for o in orbits:
+        g = port_regrid_granule(1, 0.25, o, wlon, wlat, "cpu", flag_thresh=0.5)
+        assert g is not None and int(torch.isfinite(g.vcd).sum()) > 300
