@@ -131,6 +131,28 @@ Phases (any failure raises, exit code != 0):
     bounds).  Then one ``_b_matmat`` sweep at 13a's shape, K = 8 and 16,
     beside its operations bound.
 
+14. The mesh path (``oisat_tpu_torch.parallel``), on logical shards of the
+    card (a mesh whose positions all name ``cuda:0``): (a) the sharded curve
+    (``ak_curve.cu`` once per grid shard, the sums added in shard order) at
+    4,147,200 x 99 in float32 and float64 on 1 x 2, 2 x 2 and 2 x 4 meshes,
+    against the sharded plain version (rtol 1e-5 / 1e-12) and the one-launch
+    kernel with the same knee, one launch per grid shard, bitwise on repeat,
+    an empty and an all-invalid shard, times beside the one-launch kernel
+    and the bound; (b) phase 4's stacked month through
+    ``make_full_month_step`` on 2 x 2 against ``full_month_step`` (the same
+    ``reg_index``, fields within rtol 1e-5 / atol 1e-6, no copy of the
+    inputs, peak memory, the time beside the step's, the curve at the
+    month's shape against its plain version: the ``kernels`` line's
+    numbers); (c) phase 8's MOPITT granules through
+    ``analyze_month_fused(mesh=)`` against the mesh-less month (the same
+    factor, STAGED_RTOL) and ``entry.dryrun_multichip(4)``; (d) the sharded
+    ``_b_matmat`` at 13b's 11,264 cells, K = 8, over 4 shards within 1e-5 of
+    the largest |Y| and bitwise on repeat, and 13c's Jacobi window with the
+    mesh within atol 1e-4; (e) one OMI orbit's regrid over the mesh, bitwise
+    the single-device regrid; (f) (a) and (b) over real cards where
+    ``torch.cuda.device_count() > 1``, else one line says there is one card.
+    On one card these times are the overhead of sharding, not a speed-up.
+
 Each new month logs its wall seconds, the stage split (one stage per driver
 method), the regrid seconds per granule, the host<->device copies of the
 staged path and the peak device memory.
@@ -143,7 +165,9 @@ do.  Widths, levels and grids are the products' own.  The data are synthetic, ma
 numpy seeds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-each kernel with its launches on its path, error, times and bound.
+each kernel with its launches on its path, error, times and bound:
+``ak_curve``, ``covariance`` and ``ak_curve_sharded`` (the same
+``ak_curve.cu``, launched once per grid shard on phase 14's mesh paths).
 """
 
 from __future__ import annotations
@@ -1286,14 +1310,15 @@ def phase_matfree_mopitt(dev, oi_scan, cov, mopitt, grid):
     return pv
 
 
-def phase_matfree_north_america(dev, oi_scan, cov) -> None:
+def phase_matfree_north_america(dev, oi_scan, cov):
     """Phase 13b: 60 OMI-shaped orbits over North America (TEMPO's field of
     regard, 20-60 N x 140-60 W, 81 x 129 = 10,449 cells) through
     ``analyze_month_fused(oi_method="full")``: above the scan's dense limit,
     under REFINE_MAX_CELLS once padded, so the SLQ knee and the exact float64
     solve on the card.  ``oi_full_matfree(refine=0)`` (the float32 Nystrom
     PCG) on the same compacted inputs and factor lands within twice its own
-    ``resid_abs`` of the direct increment."""
+    ``resid_abs`` of the direct increment.  Returns the padded cells for
+    phase 14d's sweep."""
     from oisat_tpu_torch.entry import NORTH_AMERICA, synthetic_regional_month
     from oisat_tpu_torch.ops.oi_full import (DENSE_SCAN_MAX_CELLS, DEVICE_EXACT_RESID_GATE,
                                              REFINE_MAX_CELLS, compact, oi_full_matfree,
@@ -1361,14 +1386,16 @@ def phase_matfree_north_america(dev, oi_scan, cov) -> None:
     log(f"13b cross-check: oi_full_matfree(refine=0) {info['solver']} {info['precond']}, "
         f"{info['cg_iters']} iterations, f64_resid {info['f64_resid']:.3e}, {pcg_s:.3f} s; "
         f"||inc_pcg - inc_direct|| {gap:.3e} <= 2 x resid_abs {info['resid_abs']:.3e}")
+    return pv
 
 
-def phase_matfree_vs_dense(dev, full, grid) -> None:
+def phase_matfree_vs_dense(dev, full, grid):
     """Phase 13c: (i) the SLQ curve on phase 7's compacted CONUS cells against
     the dense scan's curve (rtol 0.04; the two knees are logged, not held:
     that regime's knee is rounding-sensitive); (ii) the Jacobi branch against
     the dense solve on a 64 x 64 one-degree window with bench.bench_matfree's
-    mild fields (tests/test_oi_full.py's bounds)."""
+    mild fields (tests/test_oi_full.py's bounds).  Returns the window's inputs
+    and its Jacobi result for phase 14d."""
     from oisat_tpu_torch.ops.knee import kneedle_index_np
     from oisat_tpu_torch.ops.oi_full import (compact, mean_ak_curve_slq, oi_full_dense,
                                              oi_full_dense_scan, oi_full_matfree)
@@ -1413,6 +1440,7 @@ def phase_matfree_vs_dense(dev, full, grid) -> None:
         f"{info['cg_resid']:.2e}, {jac_s:.3f} s; largest |diff| xb "
         f"{np.max(np.abs(xb - ref[0])):.2e}, inc {np.max(np.abs(inc - ref[2])):.2e}, AK "
         f"{np.max(np.abs(ak - ref[1])):.2e}, err {np.max(np.abs(err - ref[3])):.2e}")
+    return args, (xb, ak, inc, err)
 
 
 def phase_sweep(dev, pv) -> list:
@@ -1440,6 +1468,301 @@ def phase_sweep(dev, pv) -> list:
             f"{peak_gb:.2f} GB; nvidia-smi {smi_line()}")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh path (logical shards of one card; real cards where there
+# are several)
+# ---------------------------------------------------------------------------
+
+def sharded_curve_bound(n_valid: int, n: int, nfac: int, dtype, shards: int) -> tuple:
+    """ak_curve_bound for the work of the sharded curve: u read once, the
+    factors read and the (R,) float64 sums written once per shard, the
+    shards' sums added (R adds per extra shard)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms(n * item + shards * nfac * (item + 8),
+                    3.0 * n_valid * nfac + (shards - 1) * nfac, dtype)
+
+
+def logical_meshes(dev):
+    """(name, mesh) of the 1 x 2, 2 x 2 and 2 x 4 meshes of logical shards
+    of ``dev``."""
+    from oisat_tpu_torch.parallel.mesh import make_mesh
+
+    return [(name, make_mesh(n, devices=[dev] * n)) for name, n in
+            (("1x2", 2), ("2x2", 4), ("2x4", 8))]
+
+
+def grid_shards(u2d, mesh) -> list:
+    """The rows of a 2-D ``u`` split over the mesh's grid axis, each shard
+    flattened on its device (a view when it is there already)."""
+    from oisat_tpu_torch.parallel.mesh import split
+
+    return [s.reshape(-1).contiguous() for s in split(u2d, mesh.axis_devices("grid"), 0)]
+
+
+def compare_sharded(shards, regs, count, oi_scan, what: str):
+    """The sharded kernel (one launch per shard, counted) against the sharded
+    plain version (to FACTORS_RTOL), bitwise on repeat; returns (max_abs_err,
+    kernel curve)."""
+    before = oi_scan.ak_curve_sums_kernel.launches
+    k = oi_scan.ak_curve_sums_sharded(shards, regs)
+    launched = oi_scan.ak_curve_sums_kernel.launches - before
+    check(launched == len(shards), f"{what}: {launched} launches for {len(shards)} shards")
+    p = oi_scan.ak_curve_sums_sharded_plain(shards, regs)
+    k2 = oi_scan.ak_curve_sums_sharded(shards, regs)
+    torch.cuda.synchronize()
+    check(torch.equal(k, k2), f"{what}: two sharded runs differ")
+    kc = k.cpu().numpy() / count if count else np.full(regs.numel(), np.nan)
+    pc = p.double().cpu().numpy() / count if count else np.full(regs.numel(), np.nan)
+    check(np.array_equal(np.isnan(kc), np.isnan(pc)), f"{what}: NaN patterns differ")
+    err = float(np.nanmax(np.abs(kc - pc))) if np.isfinite(kc).any() else 0.0
+    if np.isfinite(kc).any():
+        np.testing.assert_allclose(kc, pc, rtol=FACTORS_RTOL[regs.dtype], atol=0, err_msg=what)
+    return err, kc
+
+
+def phase_mesh_curve(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np, meshes) -> dict:
+    """Phase 14a: the sharded curve at 4,147,200 x 99 (phase 2's variances,
+    1440 rows split over the grid axis) in float32 and float64 on each mesh:
+    against the sharded plain version and the one-launch kernel (knee
+    equal), one launch per grid shard, bitwise on repeat, CUDA-event times
+    beside the one-launch kernel and the bound; then 3 rows over 4 grid
+    shards (one empty) with an all-invalid row, and an all-invalid grid."""
+    from oisat_tpu_torch.parallel.mesh import make_mesh
+
+    n = HEADLINE[0] * HEADLINE[1]
+    sa, so = variances(n, seed=0)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        u2, valid = curve_inputs(torch.as_tensor(sa.reshape(HEADLINE), dtype=dtype, device=dev),
+                                 torch.as_tensor(so.reshape(HEADLINE), dtype=dtype, device=dev))
+        regs = torch.as_tensor(regs_np, dtype=dtype, device=dev)
+        count = int(valid.sum())
+        flat = u2.reshape(-1).contiguous()
+        one = oi_scan.ak_curve_sums_kernel(flat, regs).cpu().numpy() / count
+        one_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(flat, regs), reps=20)
+        for name, mesh in meshes:
+            shards = grid_shards(u2, mesh)
+            what = f"14a {name} {dtype}"
+            err, kc = compare_sharded(shards, regs, count, oi_scan, what)
+            np.testing.assert_allclose(kc, one, rtol=FACTORS_RTOL[dtype], atol=0, err_msg=what)
+            knees = {kneedle_index_np(regs_np, kc), kneedle_index_np(regs_np, one)}
+            check(len(knees) == 1, f"{what}: knees {knees}")
+            ms = cuda_ms(lambda: oi_scan.ak_curve_sums_sharded(shards, regs), reps=20)
+            pms = cuda_ms(lambda: oi_scan.ak_curve_sums_sharded_plain(shards, regs), reps=3)
+            b, by = sharded_curve_bound(count, n, regs.numel(), dtype, len(shards))
+            out[(name, str(dtype))] = dict(err=err, ms=ms, plain_ms=pms, one_ms=one_ms,
+                                           bound_ms=b, bound_by=by, shards=len(shards))
+            log(f"{what}: {len(shards)} grid shards, max_abs_err {err:.3e}, knee "
+                f"{knees.pop()}; sharded kernel {ms:.4f} ms, one-launch kernel {one_ms:.4f} ms, "
+                f"sharded plain {pms:.4f} ms, bound {b:.4f} ms ({by}); nvidia-smi {smi_line()}")
+    mesh = make_mesh(8, devices=[meshes[0][1].devices[0][0]] * 8)  # 2 x 4: 4 grid shards
+    sa_e, so_e = variances(3 * 4099, seed=3, nan_frac=0.1)
+    sa_e, so_e = sa_e.reshape(3, 4099), so_e.reshape(3, 4099)
+    sa_e[1] = np.nan
+    for name, sa_x in (("3 rows over 4 grid shards, row 1 all invalid", sa_e),
+                       ("all invalid", np.full_like(sa_e, np.nan))):
+        u2, valid = curve_inputs(torch.as_tensor(sa_x, device=dev), torch.as_tensor(so_e, device=dev))
+        regs = torch.as_tensor(regs_np, device=dev)
+        shards = grid_shards(u2, mesh)
+        check(shards[-1].numel() == 0, "14a: the last grid shard should be empty")
+        count = int(valid.sum())
+        _, kc = compare_sharded(shards, regs, count, oi_scan, f"14a {name}")
+        if count:
+            one = oi_scan.ak_curve_sums_kernel(u2.reshape(-1).contiguous(), regs).cpu().numpy()
+            np.testing.assert_allclose(kc, one / count, rtol=1e-12, atol=0, err_msg=name)
+        else:
+            check(np.isnan(kc).all(), "14a: an all-invalid grid must give a NaN curve")
+        log(f"14a edge case {name}: sharded kernel == plain == one launch")
+    return out
+
+
+def phase_mesh_month(inputs, step, kw, step_ms, oi_scan, regs_np, mesh, what: str) -> dict:
+    """Phase 14b: phase 4's stacked OMI month through ``make_full_month_step``
+    on ``mesh`` against ``full_month_step``: the same reg_index, fields within
+    rtol 1e-5 / atol 1e-6, one curve launch per grid shard, no copy of the
+    inputs when the mesh is one card's logical shards, the peak memory and
+    the CUDA-event time beside the step's; then the sharded curve against
+    its plain version at the month's shape (the ``kernels`` line's
+    numbers)."""
+    from oisat_tpu_torch.ops.oi import curve_inputs
+    from oisat_tpu_torch.parallel.analysis import full_month_step, make_full_month_step
+
+    log(f"== phase {what}: phase 4's month through make_full_month_step")
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    full_month_step(inputs, curve_impl="kernel", **kw)
+    torch.cuda.synchronize()
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    fn, shard = make_full_month_step(mesh, curve_impl="kernel", **kw)
+    sharded = shard(inputs)
+    one_card = len(set(mesh.flat_devices())) == 1
+    if one_card:
+        for row in sharded.blocks:
+            for block in row:
+                for part, whole in zip(block, inputs):
+                    check(part.untyped_storage().data_ptr() == whole.untyped_storage().data_ptr(),
+                          f"{what}: shard_inputs copied a field")
+    n_grid = mesh.shape["grid"]
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path of phase 14: the month step over the mesh ----
+    got = fn(sharded)
+    torch.cuda.synchronize()
+    launches = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the main path ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == n_grid, f"{what}: {launches} curve launches for {n_grid} grid shards")
+    check(int(got.oi.reg_index) == int(step.oi.reg_index),
+          f"{what}: reg_index {int(got.oi.reg_index)} vs {int(step.oi.reg_index)}")
+    for name in ("sat_vcd", "sat_error", "ctm_vcd", "aux1", "aux2", "scaling_factor"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                   getattr(step, name).cpu().numpy(), rtol=1e-5, atol=1e-6,
+                                   equal_nan=True, err_msg=f"{what} {name}")
+    for name in ("xb", "averaging_kernel", "increment", "error", "curve"):
+        np.testing.assert_allclose(getattr(got.oi, name).cpu().numpy(),
+                                   getattr(step.oi, name).cpu().numpy(), rtol=1e-5, atol=1e-6,
+                                   equal_nan=True, err_msg=f"{what} oi.{name}")
+    ms = cuda_ms(lambda: fn(sharded), reps=3)
+    # the sharded curve at the month's shape (the step's own sa / so)
+    u, valid = curve_inputs((step.ctm_vcd * 50.0 / 100.0) ** 2, step.sat_error ** 2)
+    regs = torch.as_tensor(regs_np, dtype=u.dtype, device=u.device)
+    shards = grid_shards(u, mesh)
+    count = int(valid.sum())
+    err, _ = compare_sharded(shards, regs, count, oi_scan, f"{what} curve")
+    k_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_sharded(shards, regs), reps=50)
+    p_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_sharded_plain(shards, regs), reps=10)
+    b, by = sharded_curve_bound(count, u.numel(), regs.numel(), u.dtype, len(shards))
+    log(f"{what}: {mesh.shape} over {len(set(mesh.flat_devices()))} card(s), "
+        f"{'no copy of the inputs, ' if one_card else ''}{launches} curve launches, "
+        f"reg_index {int(got.oi.reg_index)} as the unsharded step, fields within rtol 1e-5; "
+        f"sharded step {ms:.2f} ms vs full_month_step {step_ms:.2f} ms (CUDA events); peak "
+        f"device memory {peak_gb:.2f} GB sharded, {step_peak_gb:.2f} GB unsharded "
+        f"({base_gb:.2f} GB held before both); nvidia-smi {smi_line()}")
+    log(f"{what} curve at the month's shape ({u.numel()} cells x {regs.numel()}, {u.dtype}, "
+        f"{len(shards)} grid shards): sharded kernel {k_ms:.4f} ms, sharded plain "
+        f"{p_ms:.4f} ms, bound {b:.4f} ms ({by}), max_abs_err {err:.3e}")
+    return dict(launches=launches, err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b, bound_by=by,
+                step_ms=ms, unsharded_step_ms=step_ms, peak_gb=peak_gb,
+                unsharded_peak_gb=step_peak_gb, cells=u.numel(),
+                dtype=str(u.dtype).replace("torch.", ""), shards=len(shards))
+
+
+def phase_mesh_mopitt(dev, oi_scan, month, grid, mesh) -> dict:
+    """Phase 14c: phase 8's MOPITT granules through ``analyze_month_fused(
+    mesh=)`` against the mesh-less fused month (the same factor, the nine
+    fields within STAGED_RTOL / STAGED_ATOL; one curve launch per grid
+    shard), then ``entry.dryrun_multichip(4)``: every maker on non-divisible
+    shapes, a regrid and the matrix-free solve over 4 logical shards."""
+    from oisat_tpu_torch.driver import oisatgmi
+    from oisat_tpu_torch.entry import dryrun_multichip
+
+    log("== phase 14c: the MOPITT month and every maker over a 2 x 2 mesh of logical shards")
+    reader = SimpleNamespace(ctm_data=[month["ctm"]], sat_data=month["grans"])
+    ref = oisatgmi()
+    ref.reader_obj = reader
+    ref_out = ref.analyze_month_fused("MOPITT", "CO", *MONTH, error_ctm=50.0)
+    meshed = oisatgmi()
+    meshed.reader_obj = reader
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path of phase 14: the fused month over the mesh ----
+    t0 = time.perf_counter()
+    out = meshed.analyze_month_fused("MOPITT", "CO", *MONTH, error_ctm=50.0, mesh=mesh)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the main path ----
+    n_grid = mesh.shape["grid"]
+    check(launches == n_grid, f"14c: {launches} curve launches for {n_grid} grid shards")
+    check(int(out.oi.reg_index) == int(ref_out.oi.reg_index),
+          f"14c: reg_index {int(out.oi.reg_index)} vs {int(ref_out.oi.reg_index)}")
+    worst = assert_fused_equals_staged(meshed, ref, "14c MOPITT month over the mesh")
+    check(implied_factor(meshed, "MOPITT", grid) == int(out.oi.reg_index),
+          "14c: the fields do not carry the factor")
+    log(f"14c MOPITT month, analyze_month_fused(mesh={mesh.shape}): {mesh_s:.3f} s, "
+        f"{launches} curve launches, factor {grid[int(out.oi.reg_index)]:.1f} as without "
+        f"the mesh, {len(DRIVER_FIELDS)} fields within rtol {STAGED_RTOL:g} (largest scaled "
+        f"difference {worst:.2e})")
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    # ---- the main path of phase 14: every maker through the entry point ----
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=dev)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    dry = oi_scan.ak_curve_sums_kernel.launches
+    # ---- end of the main path ----
+    check(dry == 4 * 2, f"14c: dryrun_multichip(4) launched the curve {dry} times, not 4 x 2")
+    log(f"14c entry.dryrun_multichip(4) on logical shards of {dev}: {dry_s:.3f} s, "
+        f"{dry} curve launches (4 makers x 2 grid shards)")
+    return {"mopitt_fused_month_mesh": launches, "dryrun_multichip_4": dry}
+
+
+def phase_mesh_sweep(dev, pv, jacobi, mesh) -> dict:
+    """Phase 14d: ``_b_matmat`` over 4 logical shards at 13b's padded cells
+    (11,264, K = 8): within 1e-5 of the largest |Y| of the unsharded sweep,
+    bitwise on repeat, CUDA-event times of both; then 13c's Jacobi window
+    through ``oi_full_matfree(mesh=)`` within atol 1e-4 of 13c's result."""
+    from oisat_tpu_torch.ops.oi_full_matfree import _b_matmat, _unit_vectors, oi_full_matfree
+
+    n = pv.xa.size
+    u3 = _unit_vectors(pv.lat, pv.lon, dev)
+    sbt = torch.as_tensor(pv.sb.astype(np.float32), device=dev)
+    v = torch.as_tensor(np.random.default_rng(4).standard_normal((n, 8)).astype(np.float32),
+                        device=dev)
+    ref = _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024)
+    got = _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024, mesh)
+    again = _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024, mesh)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "14d: two sharded sweeps differ")
+    gap = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(gap <= 1e-5 * scale, f"14d: sharded sweep {gap:.3e} from the unsharded one "
+          f"(max |Y| {scale:.3e})")
+    ms = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024), reps=5)
+    mesh_ms = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024, mesh), reps=5)
+    log(f"14d _b_matmat N={n}, K=8 over {mesh.size} logical shards: max |diff| {gap:.3e} "
+        f"({gap / scale:.2e} of max |Y|), bitwise on repeat; sharded {mesh_ms:.3f} ms vs "
+        f"unsharded {ms:.3f} ms (CUDA events, warm); nvidia-smi {smi_line()}")
+    args, want = jacobi
+    t0 = time.perf_counter()
+    res = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi", probe_sep_factor=6.0,
+                          cg_tol=1e-7, device=dev, mesh=mesh)
+    jac_s = time.perf_counter() - t0
+    for name, a, b in zip(("xb", "ak", "increment", "err"), res[:4], want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=f"14d Jacobi {name}")
+    log(f"14d Jacobi window over the mesh: {res[4]['cg_iters']} iterations, cg_resid "
+        f"{res[4]['cg_resid']:.2e}, {jac_s:.3f} s; within atol 1e-4 of 13c's (largest "
+        f"|diff| xb {np.max(np.abs(res[0] - want[0])):.2e})")
+    return dict(cells=n, ms=ms, mesh_ms=mesh_ms, gap=gap)
+
+
+def phase_mesh_regrid(dev, orbit, lon2d, lat2d, mesh) -> None:
+    """Phase 14e: one OMI orbit regridded over the mesh (fine-grid rows over
+    every position with the box filter's halo) against the single-device
+    regrid: bitwise."""
+    from oisat_tpu_torch.regridder import regrid_granule, regrid_mesh
+
+    regrid_granule(1, 0.25, orbit, lon2d, lat2d, dev, flag_thresh=0.5)  # warm the plan caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = regrid_granule(1, 0.25, orbit, lon2d, lat2d, dev, flag_thresh=0.5)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with regrid_mesh(mesh):
+        spmd = regrid_granule(1, 0.25, orbit, lon2d, lat2d, dev, flag_thresh=0.5)
+    torch.cuda.synchronize()
+    spmd_s = time.perf_counter() - t0
+    for name in ("vcd", "amf", "uncertainty", "tropopause", "pressure_mid",
+                 "scattering_weights"):
+        a, b = getattr(spmd, name), getattr(base, name)
+        check(torch.equal(torch.isnan(a), torch.isnan(b))
+              and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)),
+              f"14e: the sharded regrid's {name} is not the single-device one's")
+    log(f"14e one OMI orbit regridded over {mesh.size} logical shards: bitwise the "
+        f"single-device regrid (6 fields); {spmd_s:.3f} s vs {base_s:.3f} s (host clock, "
+        "both with the plan caches warm)")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1459,6 +1782,7 @@ def main() -> int:
     from oisat_tpu_torch.ops.knee import kneedle_index_np
     from oisat_tpu_torch.ops.oi import curve_inputs, oi, regularization_grid
     from oisat_tpu_torch.parallel.analysis import _amf_recal_month, full_month_step
+    from oisat_tpu_torch.parallel.mesh import make_mesh
     from oisat_tpu_torch.regridder import regrid_granule
 
     dev = torch.device("cuda", 0)
@@ -1629,6 +1953,13 @@ def main() -> int:
         "factors": regs.numel(),
         "dtype": str(u.dtype).replace("torch.", ""),
     }
+    # phase 14b, while the month's inputs are on the card
+    mesh2 = make_mesh(4, devices=[dev] * 4)  # 2 x 2 logical shards of the card
+    mesh_month = phase_mesh_month(inputs, step, kw, step_ms, oi_scan, regs_np, mesh2, "14b")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        phase_mesh_month(inputs, step, kw, step_ms, oi_scan, regs_np,
+                         make_mesh(min(4, n_cards)), "14f (real cards)")
     # the month's stacked inputs (~20 GB) go before the job runner repeats it
     del inputs, step, xa, u, valid
     torch.cuda.empty_cache()
@@ -1644,6 +1975,8 @@ def main() -> int:
     by_path.update(job_paths)
     # before phase 11 re-runs the OI of the staged session this is held to
     by_path["job_mopitt_staged"] = phase_job_mopitt(oi_scan, cov, mopitt, mopitt_job, regs_np)
+    mesh_paths = {"omi_month_step_2x2": mesh_month["launches"]}
+    mesh_paths.update(phase_mesh_mopitt(dev, oi_scan, mopitt_job, regs_np, mesh2))
     del mopitt_job
     mopitt_cells = phase_matfree_mopitt(dev, oi_scan, cov, mopitt, regs_np)
     by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
@@ -1656,9 +1989,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["job_omi_fallback_staged"], cov_job = phase_job_conus(dev, oi_scan, cov, full,
                                                                   regs_np)
-    phase_matfree_north_america(dev, oi_scan, cov)
-    phase_matfree_vs_dense(dev, full, regs_np)
+    north_america_cells = phase_matfree_north_america(dev, oi_scan, cov)
+    jacobi = phase_matfree_vs_dense(dev, full, regs_np)
     phase_sweep(dev, mopitt_cells)
+
+    log("== phase 14 (a, d, e, f): the mesh path on logical shards of the card")
+    t0 = time.perf_counter()
+    headline = phase_mesh_curve(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np,
+                                logical_meshes(dev))
+    phase_mesh_sweep(dev, north_america_cells, jacobi, mesh2)
+    phase_mesh_regrid(dev, orbits[0], lon2d, lat2d, mesh2)
+    if n_cards > 1:
+        phase_mesh_curve(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np,
+                         [(f"{n} cards", make_mesh(n)) for n in (2, 4, 8) if n <= n_cards])
+    else:
+        log("14f: torch.cuda.device_count() is 1: the mesh ran as logical shards of one "
+            "card only; no mesh over real cards, and no speed-up across cards, is measured")
+    log(f"phase 14 (a, d, e, f) took {time.perf_counter() - t0:.1f} s")
     curve_entry["launches"] = sum(by_path.values())
     curve_entry["launches_by_path"] = by_path
     # the same kernel held against its plain version at the other months' shapes
@@ -1668,6 +2015,28 @@ def main() -> int:
         log(f"covariance at n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
 
+    log(f"ak_curve_sharded launches on the mesh paths: {mesh_paths}")
+    sharded_entry = {
+        "name": "ak_curve_sharded",
+        "route": "cuda",
+        "source": "oisat_tpu_torch/csrc/ak_curve.cu",
+        "replaces": "oisat_tpu/ops/kernels/oi_scan.py:120",
+        "launches": sum(mesh_paths.values()),
+        "launches_by_path": mesh_paths,
+        "max_abs_err": mesh_month["err"],
+        "ms": mesh_month["ms"],
+        "plain_ms": mesh_month["plain_ms"],
+        "bound_ms": mesh_month["bound_ms"],
+        "bound_by": mesh_month["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the curve sums
+        "cells": mesh_month["cells"],
+        "factors": int(regs_np.size),
+        "dtype": mesh_month["dtype"],
+        "grid_shards": mesh_month["shards"],
+        "headline": {f"{name} {dt.replace('torch.', '')}": {
+            k: v[k] for k in ("ms", "one_ms", "plain_ms", "bound_ms", "shards")}
+            for (name, dt), v in headline.items()},
+    }
     log(f"nvidia-smi: {smi_line()}")
     print(json.dumps({"kernels": [curve_entry, {
         "name": "covariance",
@@ -1686,7 +2055,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call builds B
         "cells": full["cells"],
         "dtype": "float32",
-    }]}), flush=True)
+    }, sharded_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

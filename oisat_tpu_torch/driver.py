@@ -23,6 +23,11 @@ its results once.  The fused month assembles on the host, runs as one month
 step of :mod:`oisat_tpu_torch.parallel.analysis` on the device and pulls
 every result in one copy.  The staged path's copies are counted in
 :data:`oisat_tpu_torch._device.COPIES`.
+
+``mesh=`` (a :class:`~oisat_tpu_torch.parallel.mesh.Mesh`) on :meth:`oisatgmi.oi`
+and :meth:`oisatgmi.analyze_month_fused` runs the month step through its
+sharded maker and the OI over the mesh's grid shards; None or a mesh of one
+position takes the single-device path.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from oisat_tpu_torch.ops.oi import oi as oi_op
 from oisat_tpu_torch.ops.oi_full import oi_full
 from oisat_tpu_torch.ops.vertical import air_partial_column
 from oisat_tpu_torch.parallel.analysis import (
+    MONTH_MAKERS,
     FullMonthInputs,
     GosatMonthInputs,
     MopittMonthInputs,
@@ -265,7 +271,7 @@ class oisatgmi:
 
     def oi(self, sensor: str, error_ctm=50.0, method="scalar", length_scale_km=300.0,
            desroziers_iterations=0, desroziers_bins=1, curve_impl="auto",
-           cov_impl="auto"):
+           cov_impl="auto", mesh=None):
         """The analysis update on the averaged fields.
 
         ``method="scalar"`` is the reference's per-cell update with the
@@ -281,15 +287,18 @@ class oisatgmi:
         latitude band: the per-cell scale maps are then kept as
         ``desroziers_sa_scale_map`` / ``desroziers_so_scale_map``.
         ``curve_impl`` / ``cov_impl`` pick the scalar OI's curve engine and
-        the full OI's covariance engine."""
+        the full OI's covariance engine.  ``mesh``: the scalar OI runs over
+        the mesh's grid shards (one curve launch per shard, one knee), the
+        full OI's matrix-free sweeps over all of its positions."""
         clock = self._clock()
         self._oi_impl(sensor, error_ctm, method, length_scale_km,
-                      desroziers_iterations, desroziers_bins, curve_impl, cov_impl)
+                      desroziers_iterations, desroziers_bins, curve_impl, cov_impl,
+                      mesh=mesh)
         clock.mark("oi")
 
     def _oi_impl(self, sensor, error_ctm, method="scalar", length_scale_km=300.0,
                  desroziers_iterations=0, desroziers_bins=1, curve_impl="auto",
-                 cov_impl="auto", clock=None):
+                 cov_impl="auto", clock=None, mesh=None):
         if method not in ("scalar", "full"):
             raise ValueError(f"method must be 'scalar' or 'full', got {method!r}")
         # a previous run's binned scale maps must not outlive it on this object
@@ -302,11 +311,13 @@ class oisatgmi:
         device = self._device()
         if method == "full":
             self._oi_full(sensor, error_ctm, length_scale_km, iterations, nb, bins,
-                          device, cov_impl, clock)
+                          device, cov_impl, clock, mesh)
         else:
-            self._oi_scalar(sensor, error_ctm, iterations, nb, bins, device, curve_impl)
+            self._oi_scalar(sensor, error_ctm, iterations, nb, bins, device, curve_impl,
+                            mesh)
 
-    def _oi_scalar(self, sensor, error_ctm, iterations, nb, bins, device, curve_impl):
+    def _oi_scalar(self, sensor, error_ctm, iterations, nb, bins, device, curve_impl,
+                   mesh=None):
         """The scalar OI with its Desroziers loop on ``device``: one push of
         (xa, y, sigma_o), one pull of the four fields, the scale maps when
         binned, and a plane of scalars."""
@@ -315,7 +326,7 @@ class oisatgmi:
                                    np.asarray(self.sat_averaged_error)]), device)
         sa = (xa * error_ctm / 100.0) ** 2
         so = err**2
-        res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
+        res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl, mesh=mesh)
         # every moment sees the innovation the OI assimilated (its y < 0 -> 0)
         y_clip = torch.where(y < 0, torch.zeros_like(y), y)
         totals = []
@@ -328,7 +339,8 @@ class oisatgmi:
                 sa_step, so_step = _desroziers_step(xa, y_clip, res.xb, sa, so, bins_t, nb)
                 sa, so = sa * sa_step, so * so_step
                 sa_total, so_total = sa_total * sa_step, so_total * so_step
-                res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
+                res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl,
+                            mesh=mesh)
             totals = [sa_total, so_total]
         st = innovation_stats(xa, y_clip, res.xb, sa, so)
         fields = [res.xb, res.averaging_kernel, res.increment, res.error]
@@ -375,7 +387,7 @@ class oisatgmi:
                 sat.longitude_center)
 
     def _oi_full(self, sensor, error_ctm, length_scale_km, iterations, nb, bins,
-                 device, cov_impl, clock=None):
+                 device, cov_impl, clock=None, mesh=None):
         """The ``method == "full"`` branch of the JAX ``_oi_impl``: the
         full-covariance OI with the regularization scan, re-solved after
         each Desroziers pass with the rescaled error standard deviations
@@ -387,7 +399,7 @@ class oisatgmi:
         def solve():
             return oi_full(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km,
                            regularization_on=True, device=device, cov_impl=cov_impl,
-                           stage_ms=clock.out)
+                           stage_ms=clock.out, mesh=mesh)
 
         def t64(a):
             return h2d(np.asarray(a, np.float64), device)
@@ -434,7 +446,7 @@ class oisatgmi:
                             enddate: str, error_ctm=50.0, weighting=None,
                             save_daily=None, oi_method="scalar", length_scale_km=300.0,
                             desroziers_iterations=0, desroziers_bins=1,
-                            curve_impl="auto", cov_impl="auto", stage_ms=None):
+                            curve_impl="auto", cov_impl="auto", stage_ms=None, mesh=None):
         """The month analysis on the granules' device: the observation
         operator per granule + monthly statistics + bias correction + OI +
         innovation diagnostics, for months whose granules share one kind and
@@ -460,7 +472,11 @@ class oisatgmi:
         slot then holds NaN placeholders with ``reg_index`` -1 and a scaling
         factor of ones, so read the attributes for the OI results.
         ``curve_impl`` / ``cov_impl`` pick the scalar OI's curve engine and
-        the full OI's covariance engine.  With a ``stage_ms`` dict (the
+        the full OI's covariance engine.  ``mesh`` (more than one position):
+        the month step runs through its maker
+        (:data:`~oisat_tpu_torch.parallel.analysis.MONTH_MAKERS`), granules
+        split over 'obs' and rows over 'grid', with the result on the mesh's
+        first device; the OI tail gets the mesh too.  With a ``stage_ms`` dict (the
         session's own when None), the wall milliseconds of the stages
         "assemble" (host CTM matching and H2D), "step", "pull", and on
         tail months "oi_full" (split further under "oi_full.<stage>") and
@@ -506,10 +522,14 @@ class oisatgmi:
                            else self.stage_ms, granule_device(grans[0]))
         inputs, step = self._fused_inputs(kind, sensor, ctm_data, grans)
         clock.mark("assemble")
-        out = step(inputs, bias_offset=offset, bias_slope=slope,
-                   error_ctm=float(error_ctm), ctm_scale=float(ctm_scale),
-                   weighting=weighting, curve_impl=curve_impl,
-                   return_granules=save_daily is not None, run_oi=not oi_tail)
+        kw = dict(bias_offset=offset, bias_slope=slope, error_ctm=float(error_ctm),
+                  ctm_scale=float(ctm_scale), weighting=weighting, curve_impl=curve_impl,
+                  return_granules=save_daily is not None, run_oi=not oi_tail)
+        if mesh is not None and mesh.size > 1:
+            fn, shard = MONTH_MAKERS[step](mesh, **kw)
+            out = fn(shard(inputs))
+        else:
+            out = step(inputs, **kw)
         del inputs
         clock.mark("step")
         if save_daily is not None:
@@ -526,7 +546,7 @@ class oisatgmi:
         if oi_tail:
             self._oi_impl(sensor, error_ctm, oi_method, length_scale_km,
                           desroziers_iterations, desroziers_bins, curve_impl, cov_impl,
-                          clock)
+                          clock, mesh)
             if oi_method != "full":
                 clock.mark("oi_tail")
             return out

@@ -3,6 +3,11 @@
 * :func:`entry` is the twin of ``__graft_entry__.entry()``: the flagship step
   (:func:`~oisat_tpu_torch.parallel.analysis.full_month_step`) with the same
   ``_synthetic_full_month`` inputs, drawn here from the same numpy seed.
+* :func:`dryrun_multichip` is the twin of ``__graft_entry__.dryrun_multichip``:
+  every granule kind's sharded month step, one regrid and one matrix-free
+  full OI over a mesh, on the small inputs of :func:`synthetic_full_month`,
+  :func:`synthetic_mopitt_step_inputs`, :func:`synthetic_gosat_step_inputs`
+  and :func:`synthetic_ssmis_step_inputs` (the JAX twins' draws).
 * :func:`synthetic_month` builds an OMI-NO2-shaped month on the global
   MERRA2-GMI grid: ``n_orbits`` L2 orbits (1644 x 60 pixels, 35 scattering
   weight / pressure levels, the shape of ``bench._synthetic_orbit``) with
@@ -27,12 +32,31 @@ from __future__ import annotations
 import datetime
 
 import numpy as np
+import torch
 
-from oisat_tpu_torch.convert import full_month_inputs
+from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch.convert import (
+    full_month_inputs,
+    gosat_month_inputs,
+    mopitt_month_inputs,
+    ssmis_month_inputs,
+)
 from oisat_tpu_torch.datamodel import ctm_model, satellite_amf, satellite_opt, satellite_ssmis
-from oisat_tpu_torch.parallel.analysis import FullMonthInputs, full_month_step
+from oisat_tpu_torch.parallel.analysis import (
+    FullMonthInputs,
+    GosatMonthInputs,
+    MopittMonthInputs,
+    SsmisMonthInputs,
+    full_month_step,
+    make_full_month_step,
+    make_gosat_month_step,
+    make_mopitt_month_step,
+    make_ssmis_month_step,
+)
+from oisat_tpu_torch.parallel.mesh import factor2, make_mesh
 
-__all__ = ["entry", "synthetic_full_month", "merra2_gmi_grid", "synthetic_orbit",
+__all__ = ["entry", "dryrun_multichip", "synthetic_full_month", "synthetic_mopitt_step_inputs",
+           "synthetic_gosat_step_inputs", "synthetic_ssmis_step_inputs", "merra2_gmi_grid", "synthetic_orbit",
            "synthetic_ctm", "synthetic_month", "conus_window", "synthetic_regional_month",
            "synthetic_mopitt_day", "synthetic_mopitt_month", "synthetic_gosat_day",
            "synthetic_gosat_month", "synthetic_ssmis_map", "synthetic_ssmis_month"]
@@ -65,11 +89,141 @@ def synthetic_full_month(device, G=4, Ls=6, Lc=12, H=16, W=24, seed=0):
     return full_month_inputs(host, device)
 
 
+def synthetic_mopitt_step_inputs(device, G=4, Ls=9, Lc=12, H=16, W=24, seed=1):
+    """``__graft_entry__._synthetic_mopitt_month`` (its dense fields) with
+    tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ctm_pmid = np.sort(rng.uniform(60, 1000, (G, Lc, H, W)), axis=1)[:, ::-1].astype(f32)
+    sat_pmid = np.sort(rng.uniform(100, 950, (G, Ls, H, W)), axis=1)[:, ::-1].astype(f32)
+    prof = np.abs(rng.normal(90, 10, (G, Lc, H, W))).astype(f32)
+    vcd = np.abs(rng.normal(2, 0.5, (G, H, W))).astype(f32)
+    vcd[rng.random((G, H, W)) < 0.1] = np.nan
+    host = MopittMonthInputs(
+        ctm_pmid=ctm_pmid, ctm_profile=prof,
+        ctm_airpc=np.abs(rng.normal(2000, 100, (G, Lc, H, W))).astype(f32),
+        sat_pmid=sat_pmid,
+        aks=rng.uniform(0.1, 0.9, (G, Ls + 1, H, W)).astype(f32),
+        apriori_profile=np.abs(rng.normal(80, 10, (G, Ls, H, W))).astype(f32),
+        aprior_col=np.abs(rng.normal(2, 0.3, (G, H, W))).astype(f32),
+        apriori_surface=np.abs(rng.normal(85, 8, (G, H, W))).astype(f32),
+        vcd=vcd,
+        x_col=np.abs(rng.normal(0.09, 0.01, (G, H, W))).astype(f32),
+        uncertainty=np.abs(rng.normal(0.2, 0.05, (G, H, W))).astype(f32),
+    )
+    return mopitt_month_inputs(host, device)
+
+
+def synthetic_gosat_step_inputs(device, G=4, Ls=7, Lc=12, H=16, W=24, seed=3):
+    """``__graft_entry__._synthetic_gosat_month`` with tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ctm_pmid = np.sort(rng.uniform(60, 1000, (G, Lc, H, W)), axis=1)[:, ::-1].astype(f32)
+    sat_pmid = np.sort(rng.uniform(100, 950, (G, Ls, H, W)), axis=1)[:, ::-1].astype(f32)
+    pw = np.abs(rng.normal(1.0 / Ls, 0.02, (G, Ls, H, W))).astype(f32)
+    vcd = np.abs(rng.normal(4, 0.5, (G, H, W))).astype(f32)
+    vcd[rng.random((G, H, W)) < 0.1] = np.nan
+    host = GosatMonthInputs(
+        ctm_pmid=ctm_pmid,
+        ctm_profile=np.abs(rng.normal(1800, 100, (G, Lc, H, W))).astype(f32),
+        sat_pmid=sat_pmid,
+        aks=rng.uniform(0.2, 1.1, (G, Ls, H, W)).astype(f32),
+        apriori_profile=np.abs(rng.normal(1750, 80, (G, Ls, H, W))).astype(f32),
+        pressure_weight=pw,
+        vcd=vcd,
+        x_col=np.abs(rng.normal(1800, 30, (G, H, W))).astype(f32),
+        uncertainty=np.abs(rng.normal(10, 2, (G, H, W))).astype(f32),
+    )
+    return gosat_month_inputs(host, device)
+
+
+def synthetic_ssmis_step_inputs(device, G=4, Lc=12, H=16, W=24, seed=2):
+    """``__graft_entry__._synthetic_ssmis_month`` with tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    vcd = np.abs(rng.normal(20, 5, (G, H, W))).astype(f32)
+    vcd[rng.random((G, H, W)) < 0.1] = np.nan
+    host = SsmisMonthInputs(
+        water_pc=np.abs(rng.normal(3000, 300, (G, Lc, H, W))).astype(f32),
+        vcd=vcd,
+        uncertainty=np.abs(rng.normal(1.0, 0.2, (G, H, W))).astype(f32),
+    )
+    return ssmis_month_inputs(host, device)
+
+
 def entry(device="cuda"):
     """(fn, example_args): a full month of OI data assimilation (AMF recal ->
     monthly stats -> bias -> OI) on ``device`` (the card unless the caller
     asks for ``"cpu"``)."""
     return full_month_step, (synthetic_full_month(device),)
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """The twin of ``__graft_entry__.dryrun_multichip`` (its Eta step aside):
+    a mesh of ``n_devices`` logical shards of ``device`` (the card unless
+    the caller asks for the CPU; granules over 'obs', grid rows over
+    'grid'), one sharded step of every granule kind on deliberately
+    non-divisible shapes (G = 2a + 1 granules, H = 4b + 1 rows for an
+    a x b mesh): full (AMF recalculation), MOPITT, GOSAT (the xcol pair;
+    model VCD all NaN) and SSMIS; then one granule's regrid over the mesh
+    and the mesh-sharded matrix-free full OI.  Asserts what the twin
+    asserts and returns the regularization factors."""
+    from oisat_tpu_torch.ops.oi_full import oi_full_matfree
+    from oisat_tpu_torch.regridder import regrid_granule, regrid_mesh
+
+    dev = resolve_device(device)
+    mesh = make_mesh(n_devices, devices=[dev] * n_devices)
+    a, b = factor2(n_devices)
+    G, H, W = 2 * a + 1, 4 * b + 1, 24
+    reg = {}
+    for kind, maker, inputs in (
+            ("amf", make_full_month_step, synthetic_full_month(dev, G=G, H=H, W=W)),
+            ("opt", make_mopitt_month_step, synthetic_mopitt_step_inputs(dev, G=G, H=H, W=W)),
+            ("gosat", make_gosat_month_step, synthetic_gosat_step_inputs(dev, G=G, H=H, W=W)),
+            ("ssmis", make_ssmis_month_step, synthetic_ssmis_step_inputs(dev, G=G, H=H, W=W))):
+        fn, shard = maker(mesh)
+        out = fn(shard(inputs))
+        assert tuple(out.oi.xb.shape) == (H, W), (kind, out.oi.xb.shape)
+        if kind == "gosat":
+            # GOSAT mode: the model VCD is NaN by design; the xcol pair carries the OI
+            assert bool(torch.isnan(out.ctm_vcd).all())
+            assert int(torch.isfinite(out.oi.xb).sum()) > 0
+        else:
+            assert bool(torch.isfinite(out.scaling_factor).all()), kind
+        reg[kind] = float(out.oi.reg_factor)
+
+    rng = np.random.default_rng(11)
+    ny, nx, nz = 60, 40, 4
+    clon2, clat2 = np.meshgrid(np.arange(-10, 11, 1.25), np.arange(30, 46, 1.0))
+    lat = np.linspace(30.5, 45.2, ny)[:, None] * np.ones((ny, nx))
+    lon = np.ones((ny, 1)) * np.linspace(-9.8, 9.9, nx)[None, :]
+    gran = satellite_amf(
+        vcd=np.abs(rng.normal(3, 1, (ny, nx))),
+        amf=np.abs(rng.normal(2, 0.3, (ny, nx))),
+        time=datetime.datetime(2019, 7, 10, 13), tropopause=np.empty((1,)),
+        latitude_center=lat, longitude_center=lon,
+        uncertainty=np.abs(rng.normal(1, 0.2, (ny, nx))),
+        quality_flag=np.ones((ny, nx)),
+        pressure_mid=np.sort(rng.uniform(100, 950, (nz, ny, nx)), axis=0)[::-1].copy(),
+        scattering_weights=np.abs(rng.normal(1, 0.2, (nz, ny, nx))),
+    )
+    with regrid_mesh(mesh):
+        g = regrid_granule(1, 0.25, gran, clon2, clat2, dev, flag_thresh=0.5)
+    assert g is not None and int(torch.isfinite(g.vcd).sum()) > 0
+
+    mh, mw = 16, 32
+    mlon, mlat = np.meshgrid(np.linspace(-3, 3, mw), np.linspace(38, 44, mh))
+    mxa = np.abs(rng.normal(0.8, 0.1, (mh, mw))).ravel()
+    my = mxa * rng.uniform(0.9, 1.2, mh * mw)
+    _, _, minc, _, minfo = oi_full_matfree(
+        mxa, my, 0.5 * mxa, np.full(mh * mw, 0.1), mlat.ravel(), mlon.ravel(), 300.0,
+        block=128, precond="nystrom", nystrom_k=128, refine=0, device=dev, mesh=mesh)
+    assert np.isfinite(minc).all() and minfo["cg_resid"] < 1e-3
+    print(f"dryrun_multichip OK on {n_devices} logical shards of {dev} (mesh {a}x{b} "
+          f"obs x grid); reg factors amf {reg['amf']:.2f} / opt {reg['opt']:.2f} / "
+          f"gosat {reg['gosat']:.2f} / ssmis {reg['ssmis']:.2f}; sharded regrid "
+          f"{g.vcd.numel()} CTM cells; sharded matfree resid {minfo['cg_resid']:.1e}")
+    return reg
 
 
 def merra2_gmi_grid():

@@ -13,6 +13,12 @@ Two paths (the ones the ``fused_month`` control key switches between):
   python -m oisat_tpu_torch.examples.synthetic_month           # staged pipeline
   python -m oisat_tpu_torch.examples.synthetic_month --fused   # one month step
   python -m oisat_tpu_torch.examples.synthetic_month --oi-method full
+  python -m oisat_tpu_torch.examples.synthetic_month --fused --mesh 4
+
+``--mesh N`` runs the regrid, the month step and the OI over a mesh of N
+logical shards of the device (the sharded makers on one card, or on the
+CPU with ``--device cpu``); for N cards, set ``mesh_devices`` in a
+``control.yml``.
 
 It runs on the card unless ``--device cpu`` is given.  Outputs land in
 ./demo_out/.  For real data, write a ``control.yml`` and run
@@ -32,7 +38,8 @@ import numpy as np
 from oisat_tpu_torch._device import default_device
 from oisat_tpu_torch.datamodel import ctm_model, satellite_amf
 from oisat_tpu_torch.driver import oisatgmi
-from oisat_tpu_torch.regridder import regrid_granule
+from oisat_tpu_torch.parallel.mesh import make_mesh
+from oisat_tpu_torch.regridder import regrid_granule, regrid_mesh
 
 
 def make_ctm(seed=0, nt=8, nz=12):
@@ -91,15 +98,12 @@ def main(argv=None):
                          "full-covariance solve")
     ap.add_argument("--granules", type=int, default=6)
     ap.add_argument("--mesh", type=int, default=1,
-                    help="the `mesh_devices` control key; only 1 is ported")
+                    help="run over a mesh of this many logical shards of the device")
     ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--out", default="demo_out")
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs the multi-GPU path, which is not ported "
-            "(ROADMAP queue 1 item 6 (multi-GPU))")
     device = default_device(args.device)
+    mesh = make_mesh(args.mesh, devices=[device] * args.mesh) if args.mesh > 1 else None
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
 
@@ -108,9 +112,10 @@ def main(argv=None):
     # 1. regrid each granule onto the CTM grid (what read_data does per file);
     #    the gridded fields stay on the device
     print(f"regridding {args.granules} granules ...")
-    granules = [regrid_granule(1, 0.25, make_granule(s, 4 + s), clon, clat, device,
-                               flag_thresh=0.5)
-                for s in range(args.granules)]
+    with regrid_mesh(mesh):
+        granules = [regrid_granule(1, 0.25, make_granule(s, 4 + s), clon, clat, device,
+                                   flag_thresh=0.5)
+                    for s in range(args.granules)]
 
     obj = oisatgmi()
     obj.reader_obj = SimpleNamespace(ctm_data=[ctm], sat_data=granules)
@@ -122,14 +127,14 @@ def main(argv=None):
         # save_daily= brings the post-operator daily fields back in one copy
         print("running the fused month ...")
         obj.analyze_month_fused("OMI", "NO2", start, end, error_ctm=50.0,
-                                oi_method=args.oi_method,
+                                oi_method=args.oi_method, mesh=mesh,
                                 save_daily=(str(out / "daily"), "201907"))
     else:
         print("running the staged pipeline ...")
         obj.recal_amf()                       # AMF recalculation (obs operator)
         obj.average(start, end)               # monthly statistics
         obj.bias_correct("OMI", "NO2")        # reference regression coefficients
-        obj.oi("OMI", error_ctm=50.0, method=args.oi_method)
+        obj.oi("OMI", error_ctm=50.0, method=args.oi_method, mesh=mesh)
 
     # 2. outputs: the diag netCDF / daily .mat / PDF files the job runner writes
     if not args.fused:

@@ -9,6 +9,13 @@ granule axis G of (G, H, W) stacks.
   * error:  sqrt( nansum(err^2) / N^2 )   (N = finite err^2 per cell)
   * ctm/aux fields: plain nanmean
 
+Each statistic is a NaN-masked sum and a count (or weight sum) finished by a
+division: :func:`monthly_partials` / :func:`monthly_partials_weighted` give
+the sums of a block of granules, :func:`monthly_finish` /
+:func:`monthly_finish_weighted` the statistics, and the single-device
+functions are the two in turn, so a month split over granule blocks
+(:mod:`oisat_tpu_torch.parallel.analysis`) shares their code.
+
 :func:`averaging` is the staged, date-bucketing driver over a granule list
 (reference averaging.py:26-120): the float64 granule stacks and every
 reduction stay on the granules' device, and each month bucket's five fields
@@ -27,7 +34,9 @@ import torch
 from oisat_tpu_torch._device import d2h, granule_device, h2d, size
 from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt
 
-__all__ = ["MonthlyAverage", "monthly_stats", "monthly_stats_weighted", "averaging"]
+__all__ = ["MonthlyAverage", "StatsPartials", "monthly_stats", "monthly_stats_weighted",
+           "monthly_partials", "monthly_partials_weighted", "monthly_finish",
+           "monthly_finish_weighted", "averaging"]
 
 
 class MonthlyAverage(NamedTuple):
@@ -42,34 +51,85 @@ def _nan_like(x):
     return torch.full_like(x, math.nan)
 
 
-def _nanmean0(x):
-    valid = ~torch.isnan(x)
-    c = valid.sum(0)
-    s = torch.where(valid, x, torch.zeros_like(x)).sum(0)
-    m = s / c
-    return torch.where(c > 0, m, _nan_like(m))
-
-
 def _inf_to_nan(x):
     return torch.where(torch.isinf(x), _nan_like(x), x)
 
 
+class StatsPartials(NamedTuple):
+    """Per-cell sums over a block of granules, the monthly statistics before
+    their division: for each field of :class:`MonthlyAverage` its masked sum
+    ``s`` and its norm ``n`` (the count, or with weights the weight sum).
+    For the error ``s`` sums err^2 (weighted: w^2 err^2).  Blocks of one
+    month's granules add leaf by leaf
+    (:func:`oisat_tpu_torch.parallel.mesh.sum_in_order`)."""
+
+    s: tuple
+    n: tuple
+
+
+def _masked_sum0(x, m):
+    return torch.where(m, x, torch.zeros_like(x)).sum(0)
+
+
+def monthly_partials(vcd, err, ctm, aux1, aux2) -> StatsPartials:
+    """The sums of :func:`monthly_stats` over the granules of (G, H, W)
+    stacks: NaN-masked sums and counts, vcd scrubbed of inf, the error as
+    err^2."""
+    s, n = [], []
+    for x in (_inf_to_nan(vcd), _inf_to_nan(err**2), ctm, aux1, aux2):
+        valid = ~torch.isnan(x)
+        n.append(valid.sum(0))
+        s.append(_masked_sum0(x, valid))
+    return StatsPartials(tuple(s), tuple(n))
+
+
+def monthly_finish(p: StatsPartials) -> MonthlyAverage:
+    """:func:`monthly_stats` from the sums: means s / n, the error
+    sqrt(s / n^2); NaN where n = 0."""
+    def mean(s, c):
+        m = s / c
+        return torch.where(c > 0, m, _nan_like(m))
+
+    s, n = p
+    q = s[1] / (n[1] * n[1])
+    sat_error = torch.sqrt(torch.where(n[1] > 0, q, _nan_like(q)))
+    return MonthlyAverage(sat_vcd=mean(s[0], n[0]), sat_error=sat_error,
+                          ctm_vcd=mean(s[2], n[2]), aux1=mean(s[3], n[3]),
+                          aux2=mean(s[4], n[4]))
+
+
 def monthly_stats(vcd, err, ctm, aux1, aux2) -> MonthlyAverage:
     """All inputs (G, H, W); returns per-cell monthly statistics (H, W)."""
-    vcd = _inf_to_nan(vcd)
+    return monthly_finish(monthly_partials(vcd, err, ctm, aux1, aux2))
+
+
+def monthly_partials_weighted(vcd, err, ctm, aux1, aux2, w) -> StatsPartials:
+    """The sums of :func:`monthly_stats_weighted` over the granules: for
+    each mean the weight sum and the weighted sum of the cells where value
+    and weight exist, for the error the weight sum and sum(w^2 err^2)."""
+    w = torch.where(torch.isfinite(w) & (w > 0), w, _nan_like(w))
     err2 = _inf_to_nan(err**2)
-    valid = ~torch.isnan(err2)
-    n = valid.sum(0)
-    s = torch.where(valid, err2, torch.zeros_like(err2)).sum(0)
-    q = s / (n * n)
-    sat_error = torch.sqrt(torch.where(n > 0, q, _nan_like(q)))
-    return MonthlyAverage(
-        sat_vcd=_nanmean0(vcd),
-        sat_error=sat_error,
-        ctm_vcd=_nanmean0(ctm),
-        aux1=_nanmean0(aux1),
-        aux2=_nanmean0(aux2),
-    )
+    s, n = [], []
+    for i, x in enumerate((_inf_to_nan(vcd), err2, ctm, aux1, aux2)):
+        m = ~(torch.isnan(x) | torch.isnan(w))
+        n.append(_masked_sum0(w, m))
+        s.append(_masked_sum0(w * w * err2 if i == 1 else w * x, m))
+    return StatsPartials(tuple(s), tuple(n))
+
+
+def monthly_finish_weighted(p: StatsPartials) -> MonthlyAverage:
+    """:func:`monthly_stats_weighted` from the sums: means s / sw, the error
+    sqrt(sum(w^2 err^2)) / sw; NaN where sw = 0."""
+    def wmean(sx, sw):
+        r = sx / sw
+        return torch.where(sw > 0, r, _nan_like(r))
+
+    s, n = p
+    e = torch.sqrt(s[1]) / n[1]
+    sat_error = torch.where(n[1] > 0, e, _nan_like(e))
+    return MonthlyAverage(sat_vcd=wmean(s[0], n[0]), sat_error=sat_error,
+                          ctm_vcd=wmean(s[2], n[2]), aux1=wmean(s[3], n[3]),
+                          aux2=wmean(s[4], n[4]))
 
 
 def monthly_stats_weighted(vcd, err, ctm, aux1, aux2, w) -> MonthlyAverage:
@@ -77,27 +137,7 @@ def monthly_stats_weighted(vcd, err, ctm, aux1, aux2, w) -> MonthlyAverage:
     per-cell weights.  Means are weighted; the error is the standard error
     of a weighted mean of independent errors, ``sqrt(sum(w^2 sigma^2)) /
     sum(w)``."""
-    vcd = _inf_to_nan(vcd)
-    err2 = _inf_to_nan(err**2)
-    w = torch.where(torch.isfinite(w) & (w > 0), w, _nan_like(w))
-
-    def wmean(x):
-        m = ~(torch.isnan(x) | torch.isnan(w))
-        sw = torch.where(m, w, torch.zeros_like(w)).sum(0)
-        wx = w * x
-        sx = torch.where(m, wx, torch.zeros_like(wx)).sum(0)
-        r = sx / sw
-        return torch.where(sw > 0, r, _nan_like(r))
-
-    m = ~(torch.isnan(err2) | torch.isnan(w))
-    sw = torch.where(m, w, torch.zeros_like(w)).sum(0)
-    w2e = w * w * err2
-    sw2e = torch.where(m, w2e, torch.zeros_like(w2e)).sum(0)
-    e = torch.sqrt(sw2e) / sw
-    sat_error = torch.where(sw > 0, e, _nan_like(e))
-    return MonthlyAverage(sat_vcd=wmean(vcd), sat_error=sat_error,
-                          ctm_vcd=wmean(ctm), aux1=wmean(aux1),
-                          aux2=wmean(aux2))
+    return monthly_finish_weighted(monthly_partials_weighted(vcd, err, ctm, aux1, aux2, w))
 
 
 def nanmean(x, dim: int):

@@ -5,7 +5,9 @@ Counterpart of :func:`oisat_tpu.ops.diagnostics.innovation_stats`: innovation
 
     chi2 = mean( (y - xa)^2 / (Sa + So) )
 
-which should be ~1 when the prescribed error variances are consistent, and
+which should be ~1 when the prescribed error variances are consistent (each
+a masked sum over a count: :func:`innovation_partials` gives the sums of a
+block of cells, :func:`innovation_finish` the statistics), and
 the Desroziers et al. (2005) estimators of the error variances, global
 (:func:`desroziers_estimates`) and per region label
 (:func:`desroziers_binned`, labels from :func:`lat_band_index`).
@@ -19,7 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["InnovationStats", "innovation_stats", "DesroziersEstimate",
+__all__ = ["InnovationStats", "InnovationPartials", "innovation_stats",
+           "innovation_partials", "innovation_finish", "DesroziersEstimate",
            "desroziers_estimates", "lat_band_index", "desroziers_binned"]
 
 
@@ -32,14 +35,36 @@ class InnovationStats(NamedTuple):
     chi2: torch.Tensor  # mean((y-xa)^2 / (Sa+So)) -- expect ~1
 
 
-def _masked_mean(x, m):
-    c = m.sum()
-    mean = torch.where(m, x, torch.zeros_like(x)).sum() / c
+def _masked_sum(x, m):
+    return torch.where(m, x, torch.zeros_like(x)).sum()
+
+
+def _mean(s, c):
+    mean = s / c
     return torch.where(c > 0, mean, torch.full_like(mean, math.nan))
 
 
-def innovation_stats(xa, y, xb, sa, so) -> InnovationStats:
-    """All inputs one shape; NaN cells excluded from every statistic."""
+def _masked_mean(x, m):
+    return _mean(_masked_sum(x, m), m.sum())
+
+
+class InnovationPartials(NamedTuple):
+    """The sums behind :class:`InnovationStats` over a block of cells: the
+    count of cells with all inputs finite, the sums of omb, omb^2, oma,
+    oma^2 over them, and the count and sum of the finite chi terms.  Blocks
+    add leaf by leaf (:func:`oisat_tpu_torch.parallel.mesh.sum_in_order`)."""
+
+    n: torch.Tensor
+    omb: torch.Tensor
+    omb2: torch.Tensor
+    oma: torch.Tensor
+    oma2: torch.Tensor
+    n_chi: torch.Tensor
+    chi: torch.Tensor
+
+
+def innovation_partials(xa, y, xb, sa, so) -> InnovationPartials:
+    """The sums of :func:`innovation_stats` over one block of cells."""
     m = _all_finite(xa, y, xb, sa, so)
     omb = y - xa
     oma = y - xb
@@ -47,14 +72,25 @@ def innovation_stats(xa, y, xb, sa, so) -> InnovationStats:
     ratio = omb * omb / denom
     chi = torch.where(denom > 0, ratio, torch.full_like(ratio, math.nan))
     mchi = m & torch.isfinite(chi)
-    return InnovationStats(
-        n=m.sum(),
-        omb_mean=_masked_mean(omb, m),
-        omb_rms=torch.sqrt(_masked_mean(omb * omb, m)),
-        oma_mean=_masked_mean(oma, m),
-        oma_rms=torch.sqrt(_masked_mean(oma * oma, m)),
-        chi2=_masked_mean(chi, mchi),
-    )
+    return InnovationPartials(n=m.sum(), omb=_masked_sum(omb, m),
+                              omb2=_masked_sum(omb * omb, m), oma=_masked_sum(oma, m),
+                              oma2=_masked_sum(oma * oma, m), n_chi=mchi.sum(),
+                              chi=_masked_sum(chi, mchi))
+
+
+def innovation_finish(p: InnovationPartials) -> InnovationStats:
+    """:class:`InnovationStats` from the sums: means over the counts (NaN
+    where a count is 0), the rms as the root of the mean square."""
+    return InnovationStats(n=p.n, omb_mean=_mean(p.omb, p.n),
+                           omb_rms=torch.sqrt(_mean(p.omb2, p.n)),
+                           oma_mean=_mean(p.oma, p.n),
+                           oma_rms=torch.sqrt(_mean(p.oma2, p.n)),
+                           chi2=_mean(p.chi, p.n_chi))
+
+
+def innovation_stats(xa, y, xb, sa, so) -> InnovationStats:
+    """All inputs one shape; NaN cells excluded from every statistic."""
+    return innovation_finish(innovation_partials(xa, y, xb, sa, so))
 
 
 class DesroziersEstimate(NamedTuple):

@@ -11,6 +11,13 @@ carry ``+inf``), each engine returns the per-factor sums
 * :func:`ak_curve_sums_plain` is the same function in plain PyTorch.
 * :func:`ak_curve_sums` picks by the tensor's device: plain on the CPU, the
   kernel on CUDA.
+* :func:`ak_curve_sums_sharded` is the counterpart of
+  ``ak_curve_pallas_sharded`` (the same kernel per ``grid`` shard under
+  ``shard_map``, the sums ``psum``'d): :func:`ak_curve_sums` once per shard
+  on the shard's device, then the (R,) sums added in shard order on the
+  first shard's device, so the total repeats bitwise.
+  :func:`ak_curve_sums_sharded_plain` is its plain version and
+  :func:`ak_curve_sharded` the whole-tensor form over a mesh's grid axis.
 """
 
 from __future__ import annotations
@@ -21,8 +28,10 @@ import functools
 import torch
 
 from oisat_tpu_torch.ops.kernels._build import load_library
+from oisat_tpu_torch.parallel.mesh import split, sum_in_order
 
 __all__ = ["ak_curve_sums", "ak_curve_sums_kernel", "ak_curve_sums_plain",
+           "ak_curve_sums_sharded", "ak_curve_sums_sharded_plain", "ak_curve_sharded",
            "MAX_FACTORS", "TILE_CELLS"]
 
 MAX_FACTORS = 128  # the kernel's factor limit (ak_curve_max_factors)
@@ -119,3 +128,30 @@ def ak_curve_sums(u: torch.Tensor, regs: torch.Tensor) -> torch.Tensor:
     if u.device.type == "cpu":
         return ak_curve_sums_plain(u, regs)
     return ak_curve_sums_kernel(u, regs)
+
+
+def ak_curve_sums_sharded(u_shards, regs: torch.Tensor, engine=ak_curve_sums) -> torch.Tensor:
+    """(R,) sums over every shard of u: ``engine`` (default
+    :func:`ak_curve_sums`: the kernel for a CUDA shard, one launch each) on
+    each shard's own device, the per-shard sums then added in shard order on
+    the first shard's device.  An empty shard adds zeros."""
+    return sum_in_order([engine(u, regs.to(u.device)) for u in u_shards])
+
+
+def ak_curve_sums_sharded_plain(u_shards, regs: torch.Tensor) -> torch.Tensor:
+    """:func:`ak_curve_sums_sharded` with the plain version on every shard."""
+    return ak_curve_sums_sharded(u_shards, regs, ak_curve_sums_plain)
+
+
+def ak_curve_sharded(sa: torch.Tensor, so: torch.Tensor, regs: torch.Tensor, mesh,
+                     axis: str = "grid", engine=ak_curve_sums) -> torch.Tensor:
+    """Mean-AK curve (R,) in ``regs``' dtype over whole ``sa`` / ``so``, the
+    twin of ``ak_curve_pallas_sharded``: the cells split along their first
+    dimension (grid rows) over ``mesh``'s ``axis`` (uneven, no padding),
+    each shard on its device, the sums of :func:`ak_curve_sums_sharded`
+    divided by the global valid count (the int64 sum of the per-shard
+    counts); NaN when no cell is valid."""
+    from oisat_tpu_torch.ops.oi import curve_of_shards
+
+    devices = mesh.axis_devices(axis)
+    return curve_of_shards(split(sa, devices, 0), split(so, devices, 0), regs, engine)

@@ -447,7 +447,7 @@ def compact(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d) -> Compacted:
 
 def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: float,
             regularization_on: bool = False, *, device="cuda", cov_impl: str = "auto",
-            stage_ms: dict | None = None):
+            stage_ms: dict | None = None, mesh=None):
     """Grid-shaped full-covariance OI on ``device`` (the card unless the
     caller asks for the CPU): compaction, normalisation, the solve, and
     scatter-back to float64 numpy grids (NaN off the valid cells).
@@ -470,7 +470,11 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     scan_gemms, knee, update (or dense_solve), pull, tail, tail_resid on the
     dense branch, or slq, nystrom, pcg, refine, tail, tail_resid, diag,
     coloring, probe (those the solve reaches) on the matrix-free one, then
-    scatter."""
+    scatter.
+
+    ``mesh``: the matrix-free branch shards its sweeps over the mesh's
+    positions (:func:`oi_full_matfree`); the dense branch ignores it, and a
+    mesh of one position is dropped, as in the twin."""
     dev = resolve_device(device)
     clock = StageClock(stage_ms, dev, prefix="oi_full.")
     cp = compact(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d)
@@ -487,7 +491,7 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     if n > (DENSE_SCAN_MAX_CELLS if regularization_on else DENSE_MAX_CELLS):
         clock.mark("compact")
         xb_v, ak_v, inc_v, err_v, info = _oi_full_large(
-            cp, float(length_scale_km), regularization_on, dev, clock)
+            cp, float(length_scale_km), regularization_on, dev, clock, mesh=mesh)
         # the solver saw normalised fields: the two field-scaled numbers
         # leave in physical units (the relative cg_resid is scale-free)
         for key in ("resid_abs", "stat_norm"):
@@ -574,19 +578,19 @@ def pad_for_matfree(cp: Compacted, block: int = MATFREE_BLOCK) -> Padded:
 
 
 def slq_knee(pv: Padded, length_scale_km: float, device, block: int = MATFREE_BLOCK,
-             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS):
+             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS, mesh=None):
     """(reg_index, curve): the Kneedle knee of the full-domain SLQ mean-AK
     curve (:func:`mean_ak_curve_slq`) over the regularization grid."""
     grid = regularization_grid()
     curve = mean_ak_curve_slq((pv.lat, pv.lon), pv.sb, pv.so, grid, length_scale_km,
                               block=block, n_probes=n_probes, m=m, valid=pv.valid,
-                              device=device)
+                              device=device, mesh=mesh)
     with np.errstate(invalid="ignore"):
         return int(kneedle_index_np(grid, curve, fallback=0)), curve
 
 
 def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
-                   clock: StageClock = _UNTIMED, block: int = MATFREE_BLOCK):
+                   clock: StageClock = _UNTIMED, block: int = MATFREE_BLOCK, mesh=None):
     """The matrix-free branch of :func:`oi_full`, as the twin's
     ``_oi_full_large``: the compacted cells padded to a ``block`` multiple;
     with ``regularization_on`` the knee of the full-domain SLQ mean-AK curve
@@ -600,13 +604,13 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
     pv = pad_for_matfree(cp, block)
     sb_v = pv.sb
     if regularization_on:
-        reg_index, _ = slq_knee(pv, length_scale_km, dev, block)
+        reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh)
         # r B = (sqrt(r) sigma_b) C (sqrt(r) sigma_b)
         sb_v = sb_v * np.sqrt(float(regularization_grid()[reg_index]))
         clock.mark("slq")
     xb_v, ak_v, inc_v, err_v, info = oi_full_matfree(
         pv.xa, pv.y, sb_v, pv.so, pv.lat, pv.lon, length_scale_km, block=block,
-        valid=pv.valid, device=dev, clock=clock)
+        valid=pv.valid, device=dev, clock=clock, mesh=mesh)
     # numerics against statistics: the solve's field-error bound resid_abs
     # against the posterior-std norm the analysis is determined to
     stat = float(np.linalg.norm(err_v[:n]))

@@ -33,11 +33,17 @@ Nothing here forms the N x N covariance:
   the Woodbury posterior diagonal (or ``refine=p`` mixed-precision
   refinement passes), or Jacobi CG with R-scaled coloured probes.
 
+``mesh=`` (a :class:`~oisat_tpu_torch.parallel.mesh.Mesh`) shards every
+sweep: the column-chunk axis that ``torch.bmm(c, dv3).sum(dim=0)`` contracts
+over is split over all of the mesh's positions, each position sums its own
+chunks' partials on its device, and the (N, K) partials are added in
+position order on the first device.  A mesh of one position is dropped, as
+in the twin.
+
 TPU workarounds dropped: the 128-lane padding of the probe columns and the
 8-column padding of the innovation solve (zero columns start converged and
 change nothing; only the Nystrom rank keeps its 128 rounding, which sets the
-result) and the ``mesh=`` sharding of the sweeps (multi-GPU is ROADMAP
-queue 1 item 6).
+result).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 
 from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, radians_f32
+from oisat_tpu_torch.parallel.mesh import sum_in_order
 from oisat_tpu_torch.utils.lru import LockedLRU
 from oisat_tpu_torch.utils.stages import StageClock
 
@@ -77,7 +84,7 @@ def _unit_vectors(lat_deg, lon_deg, device) -> torch.Tensor:
     return torch.stack([cl * torch.cos(lon), cl * torch.sin(lon), torch.sin(lat)], dim=-1)
 
 
-def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int) -> torch.Tensor:
+def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int, mesh=None) -> torch.Tensor:
     """Y = B V without forming B: ``u3`` (N, 3), ``sigma_b`` (N,), ``v`` (N, K),
     N a multiple of ``block``.  For each ``block`` rows, the kernel tile
     ``exp(-kappa d^2 / 2)`` is generated in (chunk, row, column) layout from
@@ -86,7 +93,12 @@ def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int) -> torch.Tenso
     contracted against all K columns by one ``torch.bmm`` over the N / block
     column chunks, whose partials are summed after.  The difference and
     square run in place: two (N / block, block, block) temporaries at a time
-    (2 x 268 MB at N = 65,536, block = 1,024)."""
+    (2 x 268 MB at N = 65,536, block = 1,024).
+
+    ``mesh``: the column chunks are split over the mesh's positions
+    (unevenly; a position may get none), each position sweeps all rows
+    against its chunks on its device, and the positions' (N, K) partials are
+    added in position order on ``u3``'s device."""
     kappa = (EARTH_RADIUS_KM / length_scale_km) ** 2
     n = u3.shape[0]
     if n % block:
@@ -94,17 +106,25 @@ def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int) -> torch.Tenso
     nchunks = n // block
     dv3 = (sigma_b[:, None] * v).reshape(nchunks, block, -1)
     u3c = u3.reshape(nchunks, block, 3)
-    rows = []
-    for s in range(0, n, block):
-        ub = u3[s:s + block]
-        d2 = None
-        for k in range(3):
-            t = (ub[None, :, None, k] - u3c[:, None, :, k]).square_()
-            d2 = t if d2 is None else d2.add_(t)
-        c = d2.mul_(-0.5 * kappa).exp_()  # (nchunks, block_row, block_col)
-        rows.append(torch.bmm(c, dv3).sum(dim=0))
-        del c, d2, t
-    return sigma_b[:, None] * torch.cat(rows)
+    devices = [u3.device] if mesh is None else mesh.flat_devices()
+    parts = []
+    for dev, chunks in zip(devices, torch.arange(nchunks).tensor_split(len(devices))):
+        if chunks.numel() == 0:
+            continue
+        c0, c1 = int(chunks[0]), int(chunks[-1]) + 1
+        u3_d, u3c_d, dv3_d = u3.to(dev), u3c[c0:c1].to(dev), dv3[c0:c1].to(dev)
+        rows = []
+        for s in range(0, n, block):
+            ub = u3_d[s:s + block]
+            d2 = None
+            for k in range(3):
+                t = (ub[None, :, None, k] - u3c_d[:, None, :, k]).square_()
+                d2 = t if d2 is None else d2.add_(t)
+            c = d2.mul_(-0.5 * kappa).exp_()  # (chunks, block_row, block_col)
+            rows.append(torch.bmm(c, dv3_d).sum(dim=0))
+            del c, d2, t
+        parts.append(torch.cat(rows).to(u3.device))
+    return sigma_b[:, None] * sum_in_order(parts)
 
 
 def _cg_loop(amat, psolve, rhs, tol: float, maxiter: int, stall: int = JACOBI_STALL):
@@ -155,11 +175,11 @@ def _cg_loop(amat, psolve, rhs, tol: float, maxiter: int, stall: int = JACOBI_ST
 
 
 def _cg_solve_multi(u3, sigma_b, sigma_o2, rhs, length_scale_km: float, block: int,
-                    tol: float, maxiter: int):
+                    tol: float, maxiter: int, mesh=None):
     """Jacobi-preconditioned CG for (B + diag(sigma_o^2)) X = RHS."""
 
     def amat(v):
-        return _b_matmat(u3, sigma_b, v, length_scale_km, block) + sigma_o2[:, None] * v
+        return _b_matmat(u3, sigma_b, v, length_scale_km, block, mesh) + sigma_o2[:, None] * v
 
     minv = (1.0 / (sigma_b ** 2 + sigma_o2))[:, None]
     return _cg_loop(amat, lambda r: minv * r, rhs, tol, maxiter)
@@ -173,12 +193,12 @@ def _sketch(n: int, k: int, device) -> torch.Tensor:
     return torch.randn((n, k), generator=gen, device=device, dtype=_f32)
 
 
-def _nystrom_factor(u3, sigma_b, omega, length_scale_km: float, block: int):
+def _nystrom_factor(u3, sigma_b, omega, length_scale_km: float, block: int, mesh=None):
     """Rank-k randomized Nystrom eigenfactor (U, lam) of the unwhitened prior
     covariance, B ~= U diag(lam) U^T, from the sketch ``omega`` (N, k): one
     sweep of B against the k columns, two k x k eigendecompositions; modes
     under 3e-6 lam_max (float32 eigh noise) come out as lam = 0."""
-    y = _b_matmat(u3, sigma_b, omega, length_scale_km, block)
+    y = _b_matmat(u3, sigma_b, omega, length_scale_km, block, mesh)
     g = omega.T @ y
     g = 0.5 * (g + g.T)
     w, v = torch.linalg.eigh(g)  # ascending
@@ -197,14 +217,15 @@ def _nystrom_factor(u3, sigma_b, omega, length_scale_km: float, block: int):
 
 
 def _pcg_solve_nystrom(u3, sigma_b, sigma_o2, rhs, nys_u, nys_lam, c2, dcomp,
-                       length_scale_km: float, block: int, tol: float, maxiter: int):
+                       length_scale_km: float, block: int, tol: float, maxiter: int,
+                       mesh=None):
     """CG with the Nystrom deflation preconditioner (Frangella, Tropp & Udell,
     projector form): ``M^-1 = P D_c^-1 P + U diag(1 / (lam + c2)) U^T``,
     ``P = I - U U^T``, ``dcomp`` the per-cell complement diagonal (the prior
     variance the sketch missed plus sigma_o^2)."""
 
     def amat(v):
-        return _b_matmat(u3, sigma_b, v, length_scale_km, block) + sigma_o2[:, None] * v
+        return _b_matmat(u3, sigma_b, v, length_scale_km, block, mesh) + sigma_o2[:, None] * v
 
     dinv = (1.0 / dcomp)[:, None]
     dl = (1.0 / (nys_lam + c2))[:, None]
@@ -219,14 +240,15 @@ def _pcg_solve_nystrom(u3, sigma_b, sigma_o2, rhs, nys_u, nys_lam, c2, dcomp,
 
 
 def _lanczos_tridiag_batch(u3, sigma_b, sigma_o, q0, length_scale_km: float, block: int,
-                           m: int):
+                           m: int, mesh=None):
     """m-step Lanczos of the whitened covariance ``D_o^-1 B D_o^-1``, one
     recurrence per column of ``q0``, all sharing each sweep.  Returns
     (alpha (m, K), beta (m, K), norms (K,))."""
     oin = 1.0 / sigma_o
 
     def cmat(v):
-        return oin[:, None] * _b_matmat(u3, sigma_b, oin[:, None] * v, length_scale_km, block)
+        return oin[:, None] * _b_matmat(u3, sigma_b, oin[:, None] * v, length_scale_km, block,
+                                        mesh)
 
     norms = torch.sqrt(torch.sum(q0 * q0, dim=0))
     q_cur = q0 / torch.where(norms > 0, norms, 1.0)
@@ -245,13 +267,19 @@ def _lanczos_tridiag_batch(u3, sigma_b, sigma_o, q0, length_scale_km: float, blo
     return torch.stack(alphas), torch.stack(betas), norms
 
 
+def _drop_single(mesh):
+    """None for a mesh of one position (the single-device sweep), as the
+    twin drops a 1-device mesh."""
+    return None if mesh is None or mesh.size == 1 else mesh
+
+
 def _as_f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float64), device=device).to(_f32)
 
 
 def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: float,
                       block: int = 1024, n_probes: int = 8, m: int = 60, seed: int = 0,
-                      valid=None, device="cuda") -> np.ndarray:
+                      valid=None, device="cuda", mesh=None) -> np.ndarray:
     """Full-domain mean-AK-vs-regularization curve by stochastic Lanczos
     quadrature, as :func:`oisat_tpu.ops.oi_full.mean_ak_curve_slq`:
     ``meanAK(r) = (r / Nv) tr(D_bd^-1 B (rB + R)^-1 B)``, every factor a
@@ -263,10 +291,11 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     card unless the caller asks for the CPU), or an (N, 3) unit-vector
     tensor (whose device is used).  Inputs are padded to a ``block`` multiple with
     sigma_b = 0 / sigma_o = 1 rows, as in the twin, so the Rademacher probes
-    of ``np.random.default_rng(seed)`` line up.  Returns the (R,) float64
-    curve."""
+    of ``np.random.default_rng(seed)`` line up.  ``mesh`` shards every
+    sweep (see :func:`_b_matmat`).  Returns the (R,) float64 curve."""
     from scipy.linalg import eigh_tridiagonal
 
+    mesh = _drop_single(mesh)
     if isinstance(u3_or_latlon, tuple):
         dev = resolve_device(device)
         u3 = _unit_vectors(*u3_or_latlon, dev)
@@ -296,14 +325,14 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     z[~valid] = 0.0
     zd = z / np.where(valid, bd, 1.0)[:, None]  # D_bd^-1 z
     both = torch.as_tensor(np.concatenate([zd, z], axis=1).astype(np.float32), device=dev)
-    bz = _b_matmat(u3, sigma_b, both, float(length_scale_km), block).cpu().numpy()
+    bz = _b_matmat(u3, sigma_b, both, float(length_scale_km), block, mesh).cpu().numpy()
     a = bz[:, :n_probes].astype(np.float64)  # B D_bd^-1 z
     b = bz[:, n_probes:].astype(np.float64)  # B z
     oin = 1.0 / so.astype(np.float32).astype(np.float64)
     q0 = np.concatenate([(a + b) * oin[:, None], (a - b) * oin[:, None]], axis=1)
     alphas, betas, norms = _lanczos_tridiag_batch(
         u3, sigma_b, sigma_o, torch.as_tensor(q0.astype(np.float32), device=dev),
-        float(length_scale_km), block, m)
+        float(length_scale_km), block, m, mesh)
     alphas = alphas.cpu().numpy().astype(np.float64)  # (m, 2 n_probes)
     betas = betas.cpu().numpy().astype(np.float64)
     norms = norms.cpu().numpy().astype(np.float64)
@@ -513,7 +542,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
                     probe_sep_factor: float = 4.0, max_colors: int = 192,
                     cluster_radius_factor: float = 0.25, valid=None, precond: str = "auto",
                     nystrom_k: int = None, refine="auto", *, omega=None, device="cuda",
-                    clock: StageClock = _UNTIMED):
+                    clock: StageClock = _UNTIMED, mesh=None):
     """Full-covariance OI without forming B, as
     :func:`oisat_tpu.ops.oi_full.oi_full_matfree`: 1-D finite host inputs of
     n cells (padded here to a ``block`` multiple with sigma_b = 0 /
@@ -533,9 +562,11 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
     then p refinement passes against the host float64 operator.  ``omega``
     (npad, k) is the Nystrom sketch (default :func:`_sketch`).  ``clock``
     marks "nystrom", "pcg", "refine", "tail", "tail_resid", "diag",
-    "coloring" and "probe" as the branch reaches them."""
+    "coloring" and "probe" as the branch reaches them.  ``mesh`` shards
+    every sweep (see :func:`_b_matmat`)."""
     from oisat_tpu_torch.ops import oi_full as dense
 
+    mesh = _drop_single(mesh)
     if refine != "auto":
         refine = operator.index(refine)  # numpy ints count; floats and strings raise
     dev = resolve_device(device)
@@ -591,7 +622,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
         else:
             if omega is None:
                 omega = _sketch(n, k, dev)
-            nys_u, nys_lam = _nystrom_factor(u3, sigma_b, omega.to(dev, _f32), L, block)
+            nys_u, nys_lam = _nystrom_factor(u3, sigma_b, omega.to(dev, _f32), L, block, mesh)
             so2_min = float(np.float32(np.min(so2_np[valid])))
             c2 = torch.clamp(float(np.float32(4.0) * np.float32(F32_EPS)) * nys_lam[-1],
                              min=so2_min)
@@ -602,7 +633,8 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
 
             def pcg(rhs_col):
                 return _pcg_solve_nystrom(u3, sigma_b, sigma_o2, rhs_col[:, None], nys_u,
-                                          nys_lam, c2, dcomp, L, block, cg_tol, cg_maxiter)
+                                          nys_lam, c2, dcomp, L, block, cg_tol, cg_maxiter,
+                                          mesh)
 
             x, iters_total, resid_max = pcg(innov)
             x64 = x[:, 0].cpu().numpy().astype(np.float64)
@@ -668,12 +700,13 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
             if lead:
                 rhs = torch.cat([innov[:, None], rhs], dim=1)
             x, iters, resid = _cg_solve_multi(u3, sigma_b, sigma_o2, rhs, L, block, cg_tol,
-                                              cg_maxiter)
+                                              cg_maxiter, mesh)
             iters_total += iters
             resid_max = max(resid_max, resid)
             clock.mark("pcg")
             tcols = torch.as_tensor(punit, device=dev) - x[:, lead:]
-            s_all = _b_matmat(u3, sigma_b, torch.cat([x[:, :lead], tcols], dim=1), L, block)
+            s_all = _b_matmat(u3, sigma_b, torch.cat([x[:, :lead], tcols], dim=1), L, block,
+                              mesh)
             s_all = s_all.cpu().numpy().astype(np.float64)
             if lead:
                 increment = s_all[:, 0]

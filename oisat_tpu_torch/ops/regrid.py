@@ -20,7 +20,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["apply_plan_arrays", "apply_plan", "boxfilter_same_symm"]
+__all__ = ["apply_plan_arrays", "apply_plan", "boxfilter_same_symm", "box_halo_rows",
+           "boxfilter_rows_padded"]
 
 
 def apply_plan_arrays(z: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -59,11 +60,28 @@ def boxfilter_same_symm(z: torch.Tensor, ky: int, kx: int,
 
     ``squared=True`` uses the error-variance kernel ``ones/(ky*kx)**2``.
     NaNs spread over the window exactly like the reference's convolution."""
-    h, w = z.shape[-2:]
     # 'same' centering of a full convolution: pad_lo = k//2, pad_hi = (k-1)//2
-    rows = _symmetric_index(h, ky // 2, (ky - 1) // 2, z.device)
-    cols = _symmetric_index(w, kx // 2, (kx - 1) // 2, z.device)
-    zp = z.index_select(-2, rows).index_select(-1, cols)
+    rows = box_halo_rows(z.shape[-2], ky, z.device)
+    return boxfilter_rows_padded(z.index_select(-2, rows), ky, kx, squared)
+
+
+def box_halo_rows(h: int, ky: int, device) -> torch.Tensor:
+    """The source rows of the row-padded input :func:`boxfilter_same_symm`
+    filters: ``h + ky - 1`` indices, the symmetric boundary at both ends.
+    Output rows [r0, r1) read padded rows [r0, r1 + ky - 1), so a row shard
+    with that halo filters to the same values as the whole grid."""
+    return _symmetric_index(h, ky // 2, (ky - 1) // 2, device)
+
+
+def boxfilter_rows_padded(zp: torch.Tensor, ky: int, kx: int,
+                          squared: bool = False) -> torch.Tensor:
+    """:func:`boxfilter_same_symm` of an input whose rows already carry the
+    ``ky - 1`` halo rows (see :func:`box_halo_rows`): the columns are padded
+    symmetrically and the ky x kx windows summed in order, so the result
+    equals the unpadded filter's rows bitwise."""
+    h, w = zp.shape[-2] - (ky - 1), zp.shape[-1]
+    cols = _symmetric_index(w, kx // 2, (kx - 1) // 2, zp.device)
+    zp = zp.index_select(-1, cols)
     s = None
     for dy in range(ky):
         for dx in range(kx):

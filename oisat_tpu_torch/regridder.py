@@ -14,15 +14,22 @@ oisatgmi/interpolator.py:100-291, interpolator_ssmis.py:96-168) for
          map onto the CTM grid, and the uncertainty through the same path
          as a variance with the squared box kernel, sqrt at the end.
 
+Under :class:`regrid_mesh` (or :func:`set_regrid_mesh`, which the job
+runner calls when ``mesh_devices`` > 1) the device pipeline runs over the
+mesh: the fine grid's rows are split over every position, each shard
+interpolated with the box filter's halo rows and filtered on its device,
+and the shards concatenated on the regrid's device for the map onto the CTM
+grid; the values equal the single-device regrid's bitwise.
+
 The TPU package's transfer workarounds are not ported: no f16 narrowing,
 no plan compaction, no affine carrier level for the pressure stack, no
-pixel-axis buckets, no lazy/pending collection.  The SPMD mesh regrid is
-ROADMAP queue 1 item 6 (multi-GPU).
+pixel-axis buckets, no lazy/pending collection.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -31,7 +38,13 @@ import torch
 from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.convert import plan_to_torch
 from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt, satellite_ssmis
-from oisat_tpu_torch.ops.regrid import apply_plan, apply_plan_arrays, boxfilter_same_symm
+from oisat_tpu_torch.ops.regrid import (
+    apply_plan,
+    apply_plan_arrays,
+    box_halo_rows,
+    boxfilter_rows_padded,
+    boxfilter_same_symm,
+)
 from oisat_tpu_torch.ops.weights import (
     SparsePlan,
     build_plan,
@@ -42,7 +55,8 @@ from oisat_tpu_torch.ops.weights import (
 )
 from oisat_tpu_torch.utils.lru import LockedLRU
 
-__all__ = ["Upscaler", "make_upscaler", "regrid_granule", "regrid_ssmis_granule"]
+__all__ = ["Upscaler", "make_upscaler", "regrid_granule", "regrid_ssmis_granule",
+           "regrid_mesh", "set_regrid_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +221,87 @@ def _regrid_device_impl(batch, err, idx, w, mask, up_idx, up_w, up_mask,
     return out, out_err
 
 
+# PROCESS-WIDE, not a threading.local: the readers regrid in worker threads
+# (readers.sensors.common.fleet_map), which would never see a mesh the job
+# runner's main thread set thread-locally.
+_REGRID_MESH = {"mesh": None}
+
+
+class regrid_mesh:
+    """Context manager: regrids inside run over ``mesh`` (None or a mesh of
+    one position: the single-device pipeline).  Process-wide scope."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        self._prev = _REGRID_MESH["mesh"]
+        _REGRID_MESH["mesh"] = self.mesh
+        return self
+
+    def __exit__(self, *exc):
+        _REGRID_MESH["mesh"] = self._prev
+        return False
+
+
+def set_regrid_mesh(mesh) -> None:
+    """Set the regrid mesh of the process (the job runner does, once per
+    month); None restores the single-device pipeline."""
+    _REGRID_MESH["mesh"] = mesh
+
+
+def _regrid_mesh_default():
+    m = _REGRID_MESH["mesh"]
+    return m if (m is not None and m.size > 1) else None
+
+
+def _sharded_regrid_fn(mesh):
+    """The device pipeline with the fine grid's rows split over every
+    position of ``mesh`` (:func:`_regrid_device_sharded`)."""
+    return functools.partial(_regrid_device_sharded, devices=mesh.flat_devices())
+
+
+def _regrid_device_sharded(batch, err, idx, w, mask, up_idx, up_w, up_mask,
+                           fine_shape, ky: int, kx: int, passthrough: bool,
+                           square_err: bool = True, *, devices):
+    """:func:`_regrid_device_impl` over row shards of the fine grid: shard k
+    (rows [r0, r1), on ``devices[k]``) interpolates its rows plus the box
+    filter's halo (``ky // 2`` rows above, ``(ky - 1) // 2`` below, the
+    symmetric boundary at the grid's edges) from the replicated batch and
+    filters them there; the shards are concatenated on ``batch``'s device,
+    where the upscale gather runs.  Every value is computed as the
+    single-device pipeline computes it."""
+    if square_err:
+        err = err * err
+    fh, fw = fine_shape
+    halo = (np.arange(fh) if passthrough
+            else box_halo_rows(fh, ky, "cpu").numpy())  # source row of each padded row
+    pad = 0 if passthrough else ky - 1
+    k = idx.shape[-1]
+    idx3, w3, mask2 = idx.reshape(fh, fw, k), w.reshape(fh, fw, k), mask.reshape(fh, fw)
+    fine, fine_err = [], []
+    for dev, rows in zip(devices, np.array_split(np.arange(fh), len(devices))):
+        if rows.size == 0:
+            continue
+        src = torch.as_tensor(halo[rows[0]:rows[-1] + 1 + pad], device=idx.device)
+        sel = [t[src].to(dev) for t in (idx3, w3, mask2)]
+        plan = (sel[0].reshape(-1, k), sel[1].reshape(-1, k), sel[2].reshape(-1))
+        shape = (src.numel(), fw)
+        z = apply_plan_arrays(batch.to(dev), *plan).reshape(batch.shape[:-1] + shape)
+        ze = apply_plan_arrays(err.to(dev), *plan).reshape(err.shape[:-1] + shape)
+        if not passthrough:
+            z = boxfilter_rows_padded(z, ky, kx)
+            ze = boxfilter_rows_padded(ze, ky, kx, squared=True)
+        fine.append(z.to(batch.device))
+        fine_err.append(ze.to(batch.device))
+    zf, zef = torch.cat(fine, dim=-2), torch.cat(fine_err, dim=-2)
+    if passthrough:
+        return zf, zef
+    out = apply_plan_arrays(zf.reshape(zf.shape[:-2] + (-1,)), up_idx, up_w, up_mask)
+    out_err = apply_plan_arrays(zef.reshape(zef.shape[:-2] + (-1,)), up_idx, up_w, up_mask)
+    return out, out_err
+
+
 def _finish_device_fields(gridded, err_gridded, layout, hw):
     """Post-processing on the device: the (H, W) reshape, the error sqrt,
     the named 2-D row picks and the contiguous 3-D stack slices.  ``layout``
@@ -236,7 +331,9 @@ def _run_regrid(plan, upsc, batch, err, device, square_err: bool):
     else:
         up = (upsc.plan.idx, upsc.plan.w, upsc.plan.mask)
         hw = tuple(upsc.out_lat.shape)
-    out, out_err = _regrid_device_impl(
+    mesh = _regrid_mesh_default()
+    regrid_fn = _regrid_device_impl if mesh is None else _sharded_regrid_fn(mesh)
+    out, out_err = regrid_fn(
         torch.as_tensor(batch, device=device), torch.as_tensor(err, device=device),
         plan.idx, plan.w, plan.mask, *up, tuple(plan.out_shape),
         upsc.ky, upsc.kx, upsc.needed, square_err)

@@ -13,8 +13,10 @@ so every ``run/control_*.yml`` runs unchanged.  What differs from the twin:
   read (the port always runs the full-precision numerics);
 * an optional ``device`` key names the device (default: the card; a job
   without one raises, and the CPU is used only when the key says ``cpu``);
-* ``mesh_devices`` other than absent / 1 raises ``NotImplementedError``:
-  the multi-GPU path is ROADMAP queue 1 item 6 (multi-GPU);
+* ``mesh_devices`` (:func:`mesh_from_ctrl`) is resolved before any file is
+  read: ``all`` or an integer N takes that many cards (more than the host
+  has raises), and with ``device: cpu`` N logical CPU shards (``all``: one),
+  and made the process's regrid mesh;
 * the reader keywords are built by one helper (:func:`reader_kwargs`) for
   :func:`read_month` and :func:`run_month`;
 * there is no compile census: nothing is compiled per shape.
@@ -25,10 +27,14 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-from oisat_tpu_torch.driver import oisatgmi
+import torch
 
-__all__ = ["load_control", "fused_eligible", "month_window", "month_setup",
-           "reader_kwargs", "read_month", "run_month"]
+from oisat_tpu_torch.driver import oisatgmi
+from oisat_tpu_torch.parallel.mesh import make_mesh
+from oisat_tpu_torch.regridder import set_regrid_mesh
+
+__all__ = ["load_control", "fused_eligible", "mesh_from_ctrl", "month_window",
+           "month_setup", "reader_kwargs", "read_month", "run_month"]
 
 
 def load_control(path="./control.yml"):
@@ -47,6 +53,22 @@ def fused_eligible(ctrl) -> bool:
     return bool(ctrl.get("fused_month"))
 
 
+def mesh_from_ctrl(ctrl):
+    """The mesh the ``mesh_devices`` key asks for (the twin's
+    ``mesh_from_ctrl``): absent or 1 runs single-device (None); ``all``
+    every visible card and an integer N that many (raising when the host has
+    fewer); with the ``device: cpu`` key N logical shards of the CPU, and
+    ``all`` one."""
+    md = ctrl.get("mesh_devices")
+    if not md or md == 1:
+        return None
+    device = ctrl.get("device")
+    if device is not None and torch.device(device).type == "cpu":
+        n = 1 if md == "all" else int(md)
+        return make_mesh(n, devices=["cpu"] * n)
+    return make_mesh(None if md == "all" else int(md))
+
+
 def month_window(year: int, month: int):
     start = f"{year}-{month:02}-01"
     if month != 12:
@@ -57,14 +79,14 @@ def month_window(year: int, month: int):
 
 
 def month_setup(ctrl):
-    """What must hold before any file is read: the ``mesh_devices`` key is
-    absent or 1 (an unsupported value fails up front, not after the read).
-    Sets nothing process-wide."""
-    md = ctrl.get("mesh_devices")
-    if md and md != 1:
-        raise NotImplementedError(
-            f"mesh_devices: {md!r} needs the multi-GPU path, which is not ported "
-            "(ROADMAP queue 1 item 6 (multi-GPU)); run with mesh_devices absent or 1")
+    """Run before any file is read: resolve the mesh once
+    (:func:`mesh_from_ctrl`; an over-request fails here, not after the
+    read) and make it the process's regrid mesh
+    (:func:`~oisat_tpu_torch.regridder.set_regrid_mesh`), so the readers'
+    regrids run over it.  Returns the mesh (None: single device)."""
+    mesh = mesh_from_ctrl(ctrl)
+    set_regrid_mesh(mesh)
+    return mesh
 
 
 def reader_kwargs(ctrl) -> dict:
@@ -109,7 +131,7 @@ def run_month(ctrl, year: int, month: int, pre_read=None, prefetch_hook=None,
     analysis, before the report / netCDF host tail; the campaign uses it to
     start month k+1's read in its prefetch thread.  ``on_hour``: TEMPO only,
     called with each UTC hour before that hour's sub-pipeline."""
-    month_setup(ctrl)
+    mesh = month_setup(ctrl)
     gas, sensor = ctrl["gas"], ctrl["sensor"]
     start, end = month_window(year, month)
 
@@ -121,7 +143,8 @@ def run_month(ctrl, year: int, month: int, pre_read=None, prefetch_hook=None,
                 obj = _read(ctrl, year, month, tempo_hour=hour)
                 # each TEMPO hour is just another fusable month of granules
                 _analyze(obj, ctrl, sensor, gas, start, end,
-                         savedaily=("./diag_mat/", f"{year}{month:02}_{hour}UTC"))
+                         savedaily=("./diag_mat/", f"{year}{month:02}_{hour}UTC"),
+                         mesh=mesh)
                 tag = f"{gas}_{year}{month:02}_{hour}UTC"
                 obj.reporting(tag, gas, ctrl["output_pdf_dir"])
                 obj.write_to_nc(tag, ctrl["output_nc_dir"])
@@ -131,7 +154,7 @@ def run_month(ctrl, year: int, month: int, pre_read=None, prefetch_hook=None,
 
     obj = pre_read if pre_read is not None else read_month(ctrl, year, month)
     _analyze(obj, ctrl, sensor, gas, start, end,
-             savedaily=(ctrl["output_nc_dir"], f"{year}_{month:02}"))
+             savedaily=(ctrl["output_nc_dir"], f"{year}_{month:02}"), mesh=mesh)
     if prefetch_hook is not None:
         prefetch_hook()
     tag = f"{gas}_{year}{month:02}"
@@ -139,15 +162,17 @@ def run_month(ctrl, year: int, month: int, pre_read=None, prefetch_hook=None,
     obj.write_to_nc(tag, ctrl["output_nc_dir"])
 
 
-def _analyze(obj, ctrl, sensor, gas, start, end, savedaily):
+def _analyze(obj, ctrl, sensor, gas, start, end, savedaily, mesh=None):
     """Fused-or-staged analysis for one batch of granules (a month, or one
     TEMPO UTC hour).  The fused path runs the observation operator +
     averaging + bias + OI as one month step on the granules' device; months
     it cannot express (mixed granule shapes, no scattering weights) raise
     ValueError there and run the staged pipeline instead.  ``oi_method:
     full`` selects the distance-decay background covariance with
-    ``length_scale_km`` on either path."""
-    month_setup(ctrl)
+    ``length_scale_km`` on either path.  ``mesh``: the one :func:`run_month`
+    resolved; a direct caller may omit it (the control file's is used)."""
+    if mesh is None:
+        mesh = mesh_from_ctrl(ctrl)
     oi_method = ctrl.get("oi_method", "scalar")
     if oi_method not in ("scalar", "full"):
         raise ValueError(f"oi_method must be 'scalar' or 'full', got {oi_method!r}")
@@ -161,7 +186,7 @@ def _analyze(obj, ctrl, sensor, gas, start, end, savedaily):
                 sensor, gas, start, end, error_ctm=ctrl["ctm_error"],
                 weighting=ctrl.get("averaging_weighting"),
                 save_daily=(savedaily if ctrl.get("save_daily") else None),
-                oi_method=oi_method, **oi_kw)
+                oi_method=oi_method, mesh=mesh, **oi_kw)
             return
         except ValueError as e:
             print(f"fused month not applicable ({e}); running staged pipeline")
@@ -176,7 +201,7 @@ def _analyze(obj, ctrl, sensor, gas, start, end, savedaily):
         obj.savedaily(savedaily[0], gas, savedaily[1])
     obj.average(start, end, gasname=gas, weighting=ctrl.get("averaging_weighting"))
     obj.bias_correct(sensor, gas)
-    obj.oi(sensor, error_ctm=ctrl["ctm_error"], method=oi_method, **oi_kw)
+    obj.oi(sensor, error_ctm=ctrl["ctm_error"], method=oi_method, mesh=mesh, **oi_kw)
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,8 @@ imports with those and ``oisat_tpu`` blocked in ``sys.modules``, and a CPU
 regrid through the port's native plan builder (whose import is lazy), a
 MOPITT-like staged month with a Desroziers pass and its daily files, the
 job runner's dispatch with its diag fields, and a full OI above a lowered
-dense limit (the SLQ knee and the matrix-free solve) run so blocked; a call that needs
+dense limit (the SLQ knee and the matrix-free solve) and a month step over a
+2 x 2 mesh of CPU shards run so blocked; a call that needs
 one of the absent packages raises ImportError naming it.  The port's copies of the JAX package's host plan builders
 give the JAX package's plans."""
 
@@ -39,6 +40,7 @@ SLICE_MODULES = [
     "oisat_tpu_torch.ops.vertical",
     "oisat_tpu_torch.ops.regrid",
     "oisat_tpu_torch.parallel",
+    "oisat_tpu_torch.parallel.mesh",
     "oisat_tpu_torch.parallel.analysis",
     "oisat_tpu_torch.datamodel",
     "oisat_tpu_torch.convert",
@@ -157,6 +159,19 @@ res = T.oi_full(xa, xa * 1.1, 0.5 * xa, np.full(lat2.shape, 0.8), lat2, lon2, 30
 assert res.info["precond"] == "jacobi" and np.isfinite(res.xb).all()
 """
 
+# the mesh path: a 2 x 2 mesh of logical CPU shards, one sharded month step
+# against the single-device step
+_MESH = """
+from oisat_tpu_torch.entry import synthetic_full_month
+from oisat_tpu_torch.parallel.analysis import full_month_step, make_full_month_step
+from oisat_tpu_torch.parallel.mesh import make_mesh
+inputs = synthetic_full_month("cpu", G=5, H=9)
+fn, shard = make_full_month_step(make_mesh(4, devices=["cpu"] * 4))
+got, ref = fn(shard(inputs)), full_month_step(inputs)
+assert int(got.oi.reg_index) == int(ref.oi.reg_index)
+assert np.allclose(got.oi.xb.numpy(), ref.oi.xb.numpy(), rtol=1e-5, atol=1e-6, equal_nan=True)
+"""
+
 
 def test_slice_imports_without_jax_h5py_yaml_matplotlib():
     code = "\n".join([
@@ -171,6 +186,7 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         _STAGED,
         _JOB,
         _FULL,
+        _MESH,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
         "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",

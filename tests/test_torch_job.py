@@ -343,11 +343,32 @@ def test_job_helpers_and_what_the_port_refuses(tmp_path, monkeypatch):
     (tmp_path / "control.yml").write_text(yaml.safe_dump(ctrl))
     monkeypatch.chdir(tmp_path)
     assert port_job.load_control() == jax_job.load_control() == ctrl
-    for md in (2, "all"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
-            port_job.run_month(dict(ctrl, mesh_devices=md), 2019, 7)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
-            port_job.read_month(dict(ctrl, mesh_devices=md), 2019, 7)
+    # mesh_devices: with device: cpu, N logical CPU shards run the month and
+    # give the mesh-less month's file (the month steps' float32 bound); on
+    # the card, more cards than the host has raise before any file is read
+    from oisat_tpu_torch import regridder
+
+    monkeypatch.setitem(regridder._REGRID_MESH, "mesh", None)  # run_month sets it
+    _gmi(tmp_path)
+    _omi_no2(tmp_path, days=(9, 10))
+    month = dict(ctrl, ctm_name="GMI", ctm_avg=True, fused_month=True)
+    for sub, md in (("single", 1), ("mesh", 4), ("all", "all")):
+        port_job.run_month(dict(month, mesh_devices=md, output_nc_dir=str(tmp_path / sub),
+                                output_pdf_dir=str(tmp_path / sub)), 2019, 7)
+    assert regridder._regrid_mesh_default() is None  # "all" of the CPU: one position
+    a, _ = read_diag_nc(tmp_path / "mesh" / "NO2_201907.nc")
+    b, _ = read_diag_nc(tmp_path / "single" / "NO2_201907.nc")
+    c, _ = read_diag_nc(tmp_path / "all" / "NO2_201907.nc")
+    assert list(a) == list(b) and np.isfinite(b["ctm_averaged_vcd_posterior"]).sum() > 5
+    for k in b:
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-6 * np.nanmax(np.abs(b[k])),
+                                   equal_nan=True, err_msg=k)
+        assert np.array_equal(c[k], b[k], equal_nan=True), k
+    assert port_job.read_month(dict(month, mesh_devices=2), 2019, 7).reader_obj.sat_data
+    over = dict(month, device="cuda", mesh_devices=max(torch.cuda.device_count() + 1, 2))
+    for call in (port_job.run_month, port_job.read_month):
+        with pytest.raises(RuntimeError, match=r"check the mesh_devices control key"):
+            call(over, 2019, 7)
     with pytest.raises(ValueError, match="TEMPO months read per-hour"):
         port_job.read_month(dict(ctrl, sensor="TEMPO"), 2019, 7)
     assert port_job.main(["2019"]) == 2
@@ -386,8 +407,17 @@ def test_job_without_a_card_raises_unless_the_cpu_is_named(tmp_path, monkeypatch
         synthetic_month.main(["--granules", "1", "--out", str(tmp_path / "demo")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         readjust(tmp_path, tmp_path / "out")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
-        synthetic_month.main(["--mesh", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_month.main(["--mesh", "2", "--granules", "1"])
+    # --mesh 2 on the CPU: two logical shards, the mesh-less run's file
+    for sub, mesh in (("mesh", "2"), ("single", "1")):
+        assert synthetic_month.main(["--granules", "2", "--fused", "--mesh", mesh, "--device",
+                                     "cpu", "--out", str(tmp_path / sub)]) == 0
+    a, _ = read_diag_nc(tmp_path / "mesh" / "demo_201907.nc")
+    b, _ = read_diag_nc(tmp_path / "single" / "demo_201907.nc")
+    for k in b:
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-6 * np.nanmax(np.abs(b[k])),
+                                   equal_nan=True, err_msg=k)
 
 
 # ---- campaign ---------------------------------------------------------------------

@@ -258,3 +258,75 @@ def test_oi_kernel_engine_matches_plain(cuda, dtype):
                                    getattr(rp, name).cpu().numpy(),
                                    rtol=RTOL[dtype], atol=0, equal_nan=True,
                                    err_msg=name)
+
+
+# ---- the sharded curve (the mesh path's engine) ------------------------------------
+
+def _sharded(sa, so, regs_np, dtype, mesh, engine):
+    from oisat_tpu_torch.ops.kernels.oi_scan import ak_curve_sharded
+
+    sa_t, so_t = (torch.as_tensor(a, dtype=dtype, device=mesh.devices[0][0]) for a in (sa, so))
+    regs = torch.as_tensor(regs_np, dtype=dtype, device=sa_t.device)
+    return ak_curve_sharded(sa_t, so_t, regs, mesh, engine=engine)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_kernel_matches_sharded_plain_and_one_launch(cuda, n_dev, dtype):
+    """Logical shards on the card: one kernel launch per grid shard, the
+    sharded plain version within the kernel tolerance, the one-launch
+    kernel's knee, and a bitwise repeat."""
+    from oisat_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_dev, devices=[cuda] * n_dev)
+    grid_shards = mesh.shape["grid"]
+    sa, so = _variances(1_000_003, seed=n_dev)
+    regs = regularization_grid()
+    before = oi_scan.ak_curve_sums_kernel.launches
+    k = _sharded(sa, so, regs, dtype, mesh, oi_scan.ak_curve_sums).cpu().numpy()
+    assert oi_scan.ak_curve_sums_kernel.launches == before + grid_shards
+    p = _sharded(sa, so, regs, dtype, mesh, oi_scan.ak_curve_sums_plain).cpu().numpy()
+    assert oi_scan.ak_curve_sums_kernel.launches == before + grid_shards
+    one, _ = _curves(sa, so, regs, dtype, cuda)
+    np.testing.assert_allclose(k, p, rtol=RTOL[dtype], atol=0)
+    np.testing.assert_allclose(k, one, rtol=RTOL[dtype], atol=0)
+    assert kneedle_index_np(regs, k) == kneedle_index_np(regs, one) == kneedle_index_np(regs, p)
+    again = _sharded(sa, so, regs, dtype, mesh, oi_scan.ak_curve_sums).cpu().numpy()
+    assert np.array_equal(k, again)
+
+
+def test_sharded_kernel_with_empty_and_all_invalid_shards(cuda):
+    """3 rows over 4 grid shards (the last is empty: the kernel's n = 0) and
+    an all-invalid shard add nothing; all cells invalid gives NaN."""
+    from oisat_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(8, devices=[cuda] * 8)  # 2 x 4
+    sa, so = _variances(3 * 4099, seed=3, nan_frac=0.1)
+    sa, so = sa.reshape(3, 4099), so.reshape(3, 4099)
+    sa[1] = np.nan
+    regs = regularization_grid()
+    k = _sharded(sa, so, regs, torch.float64, mesh, oi_scan.ak_curve_sums).cpu().numpy()
+    one, _ = _curves(sa.ravel(), so.ravel(), regs, torch.float64, cuda)
+    np.testing.assert_allclose(k, one, rtol=1e-12, atol=0)
+    nan = _sharded(np.full_like(sa, np.nan), so, regs, torch.float64, mesh,
+                   oi_scan.ak_curve_sums)
+    assert torch.isnan(nan).all()
+
+
+def test_sharded_kernel_on_two_streams(cuda):
+    """Each stream finds its own ticket counter: the same sharded curve on
+    two streams at once gives the same sums bitwise."""
+    from oisat_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    sa, so = _variances(2_000_003, seed=9)
+    regs = regularization_grid()
+    ref = _sharded(sa, so, regs, torch.float32, mesh, oi_scan.ak_curve_sums)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        a = _sharded(sa, so, regs, torch.float32, mesh, oi_scan.ak_curve_sums)
+    with torch.cuda.stream(s2):
+        b = _sharded(sa, so, regs, torch.float32, mesh, oi_scan.ak_curve_sums)
+    torch.cuda.synchronize()
+    assert torch.equal(a, ref) and torch.equal(b, ref)

@@ -250,10 +250,12 @@ def _assert_full_oi_parity(pobj, jobj, tol):
 
 
 def test_analyze_month_fused_refuses_what_is_not_ported(monkeypatch):
-    """What still raises NotImplementedError: the job runner's
-    ``mesh_devices``.  The full OI above the dense limit (with and without a
-    Desroziers pass) now runs the matrix-free path and matches the JAX
-    package's; Desroziers and the file I/O methods run."""
+    """Nothing of this path raises NotImplementedError any more: the full OI
+    above the dense limit (with and without a Desroziers pass) runs the
+    matrix-free path and matches the JAX package's; the job runner's
+    ``mesh_devices`` runs the month over CPU shards; Desroziers and the file
+    I/O methods run; an unknown ``oi_method`` and an empty month raise
+    ValueError."""
     pobj, jobj = _month_pair(monkeypatch, n=1)
     month = ("OMI", "NO2", "2019-07-01", "2019-08-01")
     pobj.analyze_month_fused(*month, desroziers_iterations=1)
@@ -274,9 +276,18 @@ def test_analyze_month_fused_refuses_what_is_not_ported(monkeypatch):
                                        equal_nan=True, err_msg=name)
     from oisat_tpu_torch.run import job as port_job
 
-    ctrl = {"ctm_error": 50.0, "mesh_devices": 4}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6 \(multi-GPU\)"):
-        port_job._analyze(pobj, ctrl, *month, savedaily=("x", "y"))
+    # the job runner's mesh_devices: 4 logical CPU shards through _analyze
+    # (fused) give the mesh-less session's fields
+    ctrl = {"ctm_error": 50.0, "mesh_devices": 4, "device": "cpu", "fused_month": True}
+    meshed = copy.copy(pobj)
+    port_job._analyze(meshed, ctrl, *month, savedaily=("x", "y"))
+    pobj.analyze_month_fused(*month)
+    for name in ("sat_averaged_vcd", "ctm_averaged_vcd", "ctm_averaged_vcd_corrected",
+                 "ak_OI", "error_OI"):
+        want = getattr(pobj, name)
+        np.testing.assert_allclose(getattr(meshed, name), want, rtol=1e-5,
+                                   atol=1e-6 * np.nanmax(np.abs(want)), equal_nan=True,
+                                   err_msg=name)
     assert not hasattr(pobj, "_not_ported")
     fields = pobj._diag_fields()  # the file I/O methods work on this session
     assert list(fields)[:2] == ["sat_averaged_vcd", "ctm_averaged_vcd_prior"]
