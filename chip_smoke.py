@@ -152,6 +152,20 @@ Phases (any failure raises, exit code != 0):
     the single-device regrid; (f) (a) and (b) over real cards where
     ``torch.cuda.device_count() > 1``, else one line says there is one card.
     On one card these times are the overhead of sharding, not a speed-up.
+15. The host-only modules: (a) the eight modules of the downloader, the four
+    ExtData / emission tools and the batch submitters import, and one line
+    says which of requests, bs4, earthaccess, yaml and h5py this machine
+    lacks (their calls are held by the CPU tests); (b) the reference's
+    cartesian month set and the SLURM / PBS job text for a year-crossing
+    window, line for line, and where yaml is installed ``submit(dry_run=True)``
+    from a ``control.yml``; (c) whether the import-time allocator tuning ran
+    in this process; (d) four child processes in turns,
+    ``OISAT_MALLOC_TUNE=1``, ``0``, ``0``, ``1``, each timing with the host
+    clock the warm regrid of 10 of phase 4's orbits and the MOPITT month's
+    host time-collapse of its CTM (``obs_operators._time_collapsed``): the
+    medians of each child and of each setting, beside the ``nvidia-smi``
+    line; the regridded fields and the collapsed CTM are bitwise the same
+    in every child.
 
 Each new month logs its wall seconds, the stage split (one stage per driver
 method), the regrid seconds per granule, the host<->device copies of the
@@ -1764,6 +1778,184 @@ def phase_mesh_regrid(dev, orbit, lon2d, lat2d, mesh) -> None:
         "both with the plan caches warm)")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the host-only modules and the host allocator tuning
+# ---------------------------------------------------------------------------
+
+EDGE_MODULES = ("oisat_tpu_torch.downloader", "oisat_tpu_torch.tools.convert2EXT",
+                "oisat_tpu_torch.tools.createOHfields",
+                "oisat_tpu_torch.tools.create_ind_CO_emiss",
+                "oisat_tpu_torch.tools.merge_soil_CCMI_NEI", "oisat_tpu_torch.run.job_submitter",
+                "oisat_tpu_torch.run.job_submitter_sbatch",
+                "oisat_tpu_torch.run.job_submitter_qsub")
+EDGE_PACKAGES = ("requests", "bs4", "earthaccess", "yaml", "h5py")
+HOST_ORBITS = 10  # phase 4's first orbits, regridded in each child process
+HOST_ROUNDS = 2  # timed passes over them (after one warm pass), and collapses
+HOST_ORDER = ("1", "0", "0", "1")  # OISAT_MALLOC_TUNE of the children, in turns
+# the job file run/job_submitter.py writes, with the port's job line last
+SBATCH_LINES = ["#!/bin/bash", "#SBATCH -J oi_gmi", "#SBATCH --no-requeue",
+                "#SBATCH --account=s1043", "#SBATCH --ntasks=1", "#SBATCH --cpus-per-task=24",
+                "#SBATCH --mem=170G", "#SBATCH -t 12:00:00", "#SBATCH -o oi_gmi-%j.out",
+                "#SBATCH -e oi_gmi-%j.err"]
+QSUB_LINES = ["#!/bin/bash", "#PBS -l select=6:ncpus=4:mpiprocs=4:model=ivy",
+              "#PBS -l walltime=3:00:00", "#PBS -N oi_gmi", "#PBS -j oe", "#PBS -m abe",
+              "#PBS -o oi_gmi.out", "#PBS -e oi_gmi.err", "#PBS -W group_list=s1395"]
+
+
+def host_timings_child() -> None:
+    """One child of phase 15d (run as ``python -c``, ``OISAT_MALLOC_TUNE`` set
+    by the parent): phase 4's first ``HOST_ORBITS`` orbits regridded on the
+    card, once to warm the plan caches and then ``HOST_ROUNDS`` timed passes,
+    and the MOPITT month's CTM (phase 8's) time-collapsed ``HOST_ROUNDS``
+    times; prints one JSON line: whether the tuning ran, every time, and a
+    checksum of the regridded fields and the collapsed CTM."""
+    import oisat_tpu_torch
+    from oisat_tpu_torch import obs_operators
+    from oisat_tpu_torch.entry import merra2_gmi_grid, synthetic_ctm, synthetic_orbit
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    dev = torch.device("cuda", 0)
+    lon2d, lat2d = merra2_gmi_grid()
+    centers = np.linspace(-160.0, 160.0, N_ORBITS)  # entry.synthetic_month's orbits
+    orbits = [synthetic_orbit(1 + i, centers[i], day=1 + i % 28) for i in range(HOST_ORBITS)]
+    ctm = synthetic_ctm(lon2d, lat2d, seed=0, gas="CO")  # entry.synthetic_mopitt_month's
+
+    def regrid(o):
+        return regrid_granule(1, 0.25, o, lon2d, lat2d, dev, flag_thresh=0.5)
+
+    grans, _ = timed_regrid(regrid, orbits)  # warm: fine grid, upscaler, plan caches
+    check(all(g is not None for g in grans), "15d: an orbit did not regrid")
+    regrid_s = []
+    for _ in range(HOST_ROUNDS):
+        grans, secs = timed_regrid(regrid, orbits)
+        regrid_s += secs
+    names = ("pressure_mid", "gas_profile", "delta_p")
+    collapse_s = []
+    for _ in range(HOST_ROUNDS):
+        t0 = time.perf_counter()
+        collapsed = obs_operators._time_collapsed(ctm, names)
+        collapse_s.append(time.perf_counter() - t0)
+    checksum = [float(torch.nansum(g.vcd.double())) for g in grans]
+    checksum += [float(np.nansum(c, dtype=np.float64)) for c in collapsed]
+    print(json.dumps({"tuned": oisat_tpu_torch.HOST_ALLOCATOR_TUNED, "regrid_s": regrid_s,
+                      "collapse_s": collapse_s, "checksum": checksum}), flush=True)
+
+
+def submit_dry_run() -> None:
+    """Phase 15b: ``job_submitter.submit(dry_run=True)`` for both schedulers
+    from a year-crossing ``control.yml`` in a temporary directory: the
+    calendar months' job files, each the expected text."""
+    import os
+
+    from oisat_tpu_torch.run.job_submitter import submit
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as folder:
+        with open(os.path.join(folder, "control.yml"), "w") as f:
+            f.write("python_bin: python3\nnum_job: 24\ndebug: false\n"
+                    "start_date: 2005-11\nend_date: 2006-02\n")
+        os.chdir(folder)
+        try:
+            for scheduler, head in (("sbatch", SBATCH_LINES), ("qsub", QSUB_LINES)):
+                paths = submit(scheduler=scheduler, dry_run=True)
+                check(paths == [f"./jobs/job_{y}_{m}.j" for y, m in
+                                ((2005, 11), (2005, 12), (2006, 1), (2006, 2))],
+                      f"15b: submit({scheduler}) wrote {paths}")
+                for path in paths:
+                    y, m = path[len("./jobs/job_"):-len(".j")].split("_")
+                    tail = ([] if scheduler == "sbatch" else ["cd $PBS_O_WORKDIR"])
+                    with open(path) as f:
+                        got = f.read().splitlines()
+                    check(got == head + tail + [f"python3 -m oisat_tpu_torch.run.job {y} {m}"],
+                          f"15b: submit({scheduler}) {path}: {got}")
+        finally:
+            os.chdir(cwd)
+    log("15b submit(dry_run=True) from a control.yml, sbatch and qsub: the 4 calendar "
+        "months' job files, each the expected text")
+
+
+def phase_host_modules() -> None:
+    """Phase 15 (a)-(d)."""
+    import os
+
+    import oisat_tpu_torch
+
+    log("== phase 15: the host-only modules and the host allocator tuning")
+    t0 = time.perf_counter()
+    for name in EDGE_MODULES:
+        importlib.import_module(name)
+    absent = [p for p in EDGE_PACKAGES if importlib.util.find_spec(p) is None]
+    log(f"15a imported {len(EDGE_MODULES)} host-only modules; absent on this machine: "
+        f"{', '.join(absent) or 'none'} (calls that need them raise ImportError naming "
+        "them; the CPU tests hold their files, requests and job files)")
+
+    from oisat_tpu_torch.run.campaign import month_list
+    from oisat_tpu_torch.run.job_submitter import (month_list_reference, qsub_script,
+                                                   sbatch_script)
+    months = month_list_reference("2005-11", "2006-02")
+    check(months == [(y, m) for y in (2005, 2006) for m in range(1, 13)],
+          f"15b: the reference's month set for 2005-11..2006-02 is {months}")
+    check(month_list("2005-11", "2006-02") == [(2005, 11), (2005, 12), (2006, 1), (2006, 2)],
+          "15b: the calendar month list")
+    for year, month in months:
+        job = f"python3 -m oisat_tpu_torch.run.job {year} {month}"
+        got = sbatch_script("python3", 24, year, month).splitlines()
+        check(got == SBATCH_LINES + [job], f"15b: sbatch script {year}-{month}: {got}")
+        got = qsub_script("python3", year, month, debug=True).splitlines()
+        check(got == QSUB_LINES + ["#PBS -q devel", "cd $PBS_O_WORKDIR", job],
+              f"15b: qsub script {year}-{month}: {got}")
+    debug = sbatch_script("python3", 24, 2006, 2, debug=True).splitlines()
+    check(debug[7] == "#SBATCH --qos=debug", f"15b: sbatch debug line {debug[7]}")
+    log(f"15b month_list_reference 2005-11..2006-02: {len(months)} months (the reference's "
+        "cartesian set; the calendar list has 4); every sbatch / qsub script the twin's "
+        "line for line, the job line `-m oisat_tpu_torch.run.job`")
+    # the entry point itself reads control.yml: yaml decides, in the open
+    if importlib.util.find_spec("yaml") is not None:
+        submit_dry_run()
+    else:
+        log("15b yaml is not installed here: submit() is held by the CPU tests "
+            "(tests/test_torch_submitter.py)")
+    env_tune = os.environ.get("OISAT_MALLOC_TUNE", "1")
+    check(oisat_tpu_torch.HOST_ALLOCATOR_TUNED == (env_tune == "1"),
+          "15c: the tuning must run at import unless OISAT_MALLOC_TUNE=0")
+    log(f"15c this process: OISAT_MALLOC_TUNE={env_tune}, allocator tuned at import: "
+        f"{oisat_tpu_torch.HOST_ALLOCATOR_TUNED}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = "import chip_smoke; chip_smoke.host_timings_child()"
+    smi = smi_line()
+    pooled = {"1": {"regrid_s": [], "collapse_s": []}, "0": {"regrid_s": [], "collapse_s": []}}
+    checksums = []
+    for tune in HOST_ORDER:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=here,
+                              env=dict(os.environ, OISAT_MALLOC_TUNE=tune),
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"15d child OISAT_MALLOC_TUNE={tune}: {proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(res["tuned"] is (tune == "1"), f"15d child OISAT_MALLOC_TUNE={tune}: {res}")
+        checksums.append(res["checksum"])
+        for key in ("regrid_s", "collapse_s"):
+            pooled[tune][key] += res[key]
+        log(f"15d child OISAT_MALLOC_TUNE={tune}: regrid median "
+            f"{np.median(res['regrid_s']):.4f} s/orbit (min {min(res['regrid_s']):.4f}, max "
+            f"{max(res['regrid_s']):.4f}; {HOST_ROUNDS} x {HOST_ORBITS} warm orbits), MOPITT CTM "
+            f"time-collapse median {np.median(res['collapse_s']):.3f} s (min "
+            f"{min(res['collapse_s']):.3f}, max {max(res['collapse_s']):.3f}; {HOST_ROUNDS} "
+            f"calls), host clock; {smi}")
+    check(all(c == checksums[0] for c in checksums),
+          f"15d: the regrids or the collapse differ between the children: {checksums}")
+    medians = {tune: {key: float(np.median(v)) for key, v in times.items()}
+               for tune, times in pooled.items()}
+    for tune, med in medians.items():
+        log(f"15d OISAT_MALLOC_TUNE={tune}, the {HOST_ORDER.count(tune)} children pooled: regrid "
+            f"median {med['regrid_s']:.4f} s/orbit, MOPITT CTM time-collapse median "
+            f"{med['collapse_s']:.3f} s; {smi}")
+    log(f"15d tuned / untuned: regrid {medians['1']['regrid_s'] / medians['0']['regrid_s']:.3f}, "
+        f"time-collapse {medians['1']['collapse_s'] / medians['0']['collapse_s']:.3f}; fields "
+        "bitwise equal in every child")
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2006,6 +2198,7 @@ def main() -> int:
         log("14f: torch.cuda.device_count() is 1: the mesh ran as logical shards of one "
             "card only; no mesh over real cards, and no speed-up across cards, is measured")
     log(f"phase 14 (a, d, e, f) took {time.perf_counter() - t0:.1f} s")
+    phase_host_modules()
     curve_entry["launches"] = sum(by_path.values())
     curve_entry["launches_by_path"] = by_path
     # the same kernel held against its plain version at the other months' shapes

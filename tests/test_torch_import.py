@@ -6,8 +6,11 @@ MOPITT-like staged month with a Desroziers pass and its daily files, the
 job runner's dispatch with its diag fields, and a full OI above a lowered
 dense limit (the SLQ knee and the matrix-free solve) and a month step over a
 2 x 2 mesh of CPU shards run so blocked; a call that needs
-one of the absent packages raises ImportError naming it.  The port's copies of the JAX package's host plan builders
-give the JAX package's plans."""
+one of the absent packages raises ImportError naming it.  The host-only modules (the downloader, the
+four ExtData / emission tools, the batch submitters) import with requests,
+bs4 and earthaccess blocked too, and import-time allocator tuning makes the
+twin's ``mallopt`` calls.  The port's copies of the JAX package's host plan
+builders give the JAX package's plans."""
 
 import subprocess
 import sys
@@ -72,13 +75,26 @@ SLICE_MODULES = [
     "oisat_tpu_torch.run.campaign",
     "oisat_tpu_torch.tools",
     "oisat_tpu_torch.tools.readjust_OI",
+    "oisat_tpu_torch.tools.convert2EXT",
+    "oisat_tpu_torch.tools.createOHfields",
+    "oisat_tpu_torch.tools.create_ind_CO_emiss",
+    "oisat_tpu_torch.tools.merge_soil_CCMI_NEI",
+    "oisat_tpu_torch.run.job_submitter",
+    "oisat_tpu_torch.run.job_submitter_sbatch",
+    "oisat_tpu_torch.run.job_submitter_qsub",
+    "oisat_tpu_torch.downloader",
     "oisat_tpu_torch.examples",
     "oisat_tpu_torch.examples.synthetic_month",
     "oisat_tpu_torch.entry",
     "chip_smoke",
 ]
 
-_BLOCKED = ("jax", "jaxlib", "h5py", "yaml", "matplotlib", "oisat_tpu")
+_BLOCKED = ("jax", "jaxlib", "h5py", "yaml", "matplotlib", "requests", "bs4", "earthaccess",
+            "oisat_tpu")
+# the host-only modules (the downloader, the ExtData / emission tools, the submitters)
+EDGE_MODULES = [m for m in SLICE_MODULES if m.rsplit(".", 1)[-1] in (
+    "downloader", "convert2EXT", "createOHfields", "create_ind_CO_emiss", "merge_soil_CCMI_NEI",
+    "job_submitter", "job_submitter_sbatch", "job_submitter_qsub")]
 
 # one tiny OMI-shaped orbit regridded on the CPU through the native builder
 _REGRID = """
@@ -147,6 +163,41 @@ for call, args, package in ((read_nc, ("absent.nc", "x"), "h5py"),
         raise AssertionError(f"{call.__name__} did not raise ImportError")
 """
 
+# the host-only modules: what runs without their packages runs, and a call
+# that needs an absent one raises ImportError naming it
+_EDGES = """
+import types
+from oisat_tpu_torch.downloader import _fetch, downloader
+from oisat_tpu_torch.run.job_submitter import month_list_reference, sbatch_script, submit
+from oisat_tpu_torch.tools import convert2EXT, createOHfields
+d = downloader(20, 60, -135, -55, "2019-07-01", "2019-07-03")
+assert len(d.merra2_gmi("unused", dry_run=True)) == 4
+assert len(month_list_reference("2005-11", "2006-02")) == 24
+assert sbatch_script("python3", 4, 2019, 7).splitlines()[-1] == "python3 -m oisat_tpu_torch.run.job 2019 7"
+with tempfile.TemporaryDirectory() as folder:
+    assert convert2EXT.convert(folder, os.path.join(folder, "ext")) is None
+    calls = ((createOHfields.create, (folder, folder, 2005), "h5py"),
+             (submit, ("absent.yml",), "yaml"),
+             (_fetch, ("http://127.0.0.1:9/g.nc", folder), "requests"),
+             (d.download_mopitt_l2, (folder,), "requests"),
+             (d.download_tempo_L2, ("NO2", folder), "earthaccess"))
+    for call, args, package in calls:
+        try:
+            call(*args)
+        except ImportError as e:
+            assert package in str(e), (package, e)
+        else:
+            raise AssertionError(f"{call.__name__} did not raise ImportError")
+    sys.modules["requests"] = types.ModuleType("requests")  # present, bs4 absent
+    try:
+        d.omi_hcho_cfa(folder)
+    except ImportError as e:
+        assert "bs4" in str(e), e
+    else:
+        raise AssertionError("omi_hcho_cfa did not raise ImportError")
+    sys.modules["requests"] = None
+"""
+
 # the matrix-free full OI: a 12 x 16 domain above a lowered dense limit
 _FULL = """
 from oisat_tpu_torch.ops import oi_full as T
@@ -187,6 +238,7 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         _JOB,
         _FULL,
         _MESH,
+        _EDGES,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
         "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",
@@ -199,14 +251,56 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
 
 
 def test_no_module_of_the_port_imports_the_jax_package():
-    """No import statement of oisat_tpu in the port or chip_smoke.py."""
+    """No import statement of oisat_tpu in the port or chip_smoke.py (the
+    eight host-only modules among the files read), and no module-level import
+    of a package the card's machine lacks: those sit inside functions."""
     import re
 
     pat = re.compile(r"^\s*(from|import) oisat_tpu(\.|\s|$)")
+    top = re.compile(r"^(from|import) (jax|h5py|yaml|matplotlib|requests|bs4|earthaccess)\b")
     files = sorted((REPO / "oisat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    edge_files = {REPO / (m.replace(".", "/") + ".py") for m in EDGE_MODULES}
+    assert len(edge_files) == 8 and edge_files <= set(files)
     hits = [f"{f}:{i}" for f in files
-            for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line) or top.match(line)]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("tune", ["1", "0"])
+def test_import_tunes_the_host_allocator_as_the_twin(tune):
+    """``import oisat_tpu_torch`` makes the twin's two ``mallopt`` calls
+    (``M_MMAP_THRESHOLD`` 32 MiB, ``M_TRIM_THRESHOLD`` 256 MiB), as ``import
+    oisat_tpu`` does, with ``ctypes.CDLL`` recording them; none with
+    ``OISAT_MALLOC_TUNE=0``."""
+    import json
+    import os
+
+    code = "\n".join([
+        "import ctypes, json, sys",
+        "calls = []",
+        "class Libc:",
+        "    def __init__(self, name):",
+        "        calls.append(('CDLL', name))",
+        "    def mallopt(self, param, value):",
+        "        calls.append(('mallopt', param, value))",
+        "        return 1",
+        "ctypes.CDLL = Libc",
+        "pkg = __import__(sys.argv[1])",
+        "print(json.dumps([calls, getattr(pkg, 'HOST_ALLOCATOR_TUNED', None)]))",
+    ])
+    env = dict(os.environ, OISAT_MALLOC_TUNE=tune)
+    out = {}
+    for pkg in ("oisat_tpu_torch", "oisat_tpu"):
+        proc = subprocess.run([sys.executable, "-c", code, pkg], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        out[pkg] = json.loads(proc.stdout.strip().splitlines()[-1])
+    calls, tuned = out["oisat_tpu_torch"]
+    assert calls == out["oisat_tpu"][0]
+    want = [["CDLL", "libc.so.6"], ["mallopt", -3, 33554432], ["mallopt", -1, 268435456]]
+    assert calls == (want if tune == "1" else [])
+    assert tuned is (tune == "1")
 
 
 @pytest.mark.parametrize("fast", [False, True])
