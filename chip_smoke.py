@@ -166,6 +166,23 @@ Phases (any failure raises, exit code != 0):
     medians of each child and of each setting, beside the ``nvidia-smi``
     line; the regridded fields and the collapsed CTM are bitwise the same
     in every child.
+16. The port's bench (``oisat_tpu_torch.bench``): every row that writes no
+    product files, once each with one repeat, each running its own check (a
+    row raises when it fails): the OI headline at 1440 x 2880 with the
+    kernel and with the plain curve engine, the curve phase at 4,147,200 x
+    99, the Kalman solve at 2,048 cells, both regrids and the pipelined one
+    over 2 orbits, the staged, fused and full-covariance months of 4 half
+    orbits, one month of the year's four kinds (4 OMI orbits), the
+    bandwidth OI at 1,536 x 3,072 and the matrix-free solve at 1,980 cells
+    (180 x 11).  Each line has bench.py's five keys, finite values and this
+    card's name; both kernels launched (counted from 0 after the curve row,
+    which compares the kernel with its plain version: ``bench_rows`` in the
+    ``kernels`` line).  The inputs the months' and the year's OIs hand to
+    the curve kernel are kept as it launches, and each distinct one is then
+    held against the plain version (``other_shapes`` in the ``kernels``
+    line); then ``python -m
+    oisat_tpu_torch.bench`` in a child process prints exactly one line, the
+    headline.
 
 Each new month logs its wall seconds, the stage split (one stage per driver
 method), the regrid seconds per granule, the host<->device copies of the
@@ -202,6 +219,16 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from oisat_tpu_torch.utils.roofline import (  # the card's ceilings, bounds, timers
+    ak_curve_bound,
+    bound_ms,
+    covariance_bound,
+    cuda_ms,
+    division_floor_ms,
+    smi_line,
+    smi_query,
+)
+
 N_ORBITS = 60
 HEADLINE = (1440, 2880)
 FACTORS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -222,13 +249,6 @@ N_SSMIS = 3  # one monthly map per satellite
 DIAG_NAMES = ("sat_averaged_vcd", "ctm_averaged_vcd_prior", "ctm_averaged_vcd_posterior",
               "sat_averaged_error", "ak_OI", "error_OI", "scaling_factor", "lon", "lat",
               "aux1", "aux2")  # the diag netCDF's variables, in the file's order
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FLOP/s outside the
-# tensor cores; the card's power limit is printed beside every time
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-COV_OPS_PER_ELEMENT = 19  # covariance.cu: 2 sub, 1 add, 9 mul, 1 div, 1 neg,
-# 2 compares (the clip), 2 sin, 1 exp -- each sin / exp counted once
-MUFU_PER_SM_CLOCK = 16  # Hopper's special-function unit: reciprocals per SM per clock
 
 
 def log(msg: str) -> None:
@@ -238,61 +258,6 @@ def log(msg: str) -> None:
 def check(ok, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` runs, between CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
-    """(least milliseconds, "bytes" or "operations"): the larger of the bytes
-    over the HBM rate and the operations over the card's peak for ``dtype``."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def ak_curve_bound(n_valid: int, n: int, nfac: int, dtype) -> tuple:
-    """u read once, the factors read once, the (R,) float64 sums written
-    once; r / (r + u) and its accumulation (an add, a divide, an add) for
-    each valid cell and factor (invalid cells add exactly 0)."""
-    item = torch.tensor([], dtype=dtype).element_size()
-    return bound_ms(n * item + nfac * item + nfac * 8, 3.0 * n_valid * nfac, dtype)
-
-
-def covariance_bound(n: int) -> tuple:
-    """lat, lon, sigma read once, the (n, n) float32 B written once;
-    ``COV_OPS_PER_ELEMENT`` operations per element."""
-    return bound_ms(3 * n * 4 + n * n * 4, COV_OPS_PER_ELEMENT * n * n, torch.float32)
-
-
-def division_floor_ms(n_valid: int, nfac: int, max_sm_mhz: float) -> float:
-    """ak_curve's floor on its own division unit: one MUFU reciprocal per
-    valid cell and factor, at MUFU_PER_SM_CLOCK per SM at the maximum SM
-    clock (the IEEE division's FMA steps and range check come on top)."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return n_valid * nfac / (sms * MUFU_PER_SM_CLOCK * max_sm_mhz * 1e6) * 1e3
-
-
-def smi_query(fields: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def smi_line() -> str:
-    return smi_query("name,power.limit")
 
 
 def variances(n: int, seed: int, nan_frac: float = 0.2):
@@ -1956,14 +1921,148 @@ def phase_host_modules() -> None:
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_TIMED = ("median", "min", "max", "repeats")
+
+
+@contextlib.contextmanager
+def curve_tap(oi_scan, kept: list, label: str):
+    """Inside the block, a copy of the (u, regs) of every ``ak_curve.cu``
+    launch is appended to ``kept`` as (label, launch number in the block,
+    u, regs).  The stand-in takes the wrapper's module name and passes every
+    call on to it; the wrapper counts its launches on whatever that name
+    holds, so the stand-in carries the count and hands it back."""
+    kernel = oi_scan.ak_curve_sums_kernel
+    n = [0]
+
+    def tap(u, regs):
+        kept.append((label, n[0], u.detach().clone(), regs.detach().clone()))
+        n[0] += 1
+        return kernel(u, regs)
+
+    tap.launches = kernel.launches
+    oi_scan.ak_curve_sums_kernel = tap
+    try:
+        yield
+    finally:
+        oi_scan.ak_curve_sums_kernel = kernel
+        kernel.launches = tap.launches
+
+
+def bench_curve_shapes(oi_scan, kept) -> list:
+    """The curve kernel against its plain version (``compare_curve``, rtol
+    1e-5 float32 / 1e-12 float64) on each distinct input the bench's months
+    and year handed it, with its time, the plain time and the bound: the
+    ``other_shapes`` entries of phase 16."""
+    from oisat_tpu_torch.bench import YEAR_PLAN
+
+    shapes, seen = [], []
+    for label, i, u, regs in kept:
+        if any(u.dtype == v.dtype and u.shape == v.shape and torch.equal(u, v) for v in seen):
+            continue
+        seen.append(u)
+        # the year runs one scalar OI per kind, in the plan's order
+        label = (f"{label} month 1, {YEAR_PLAN[i][0]}" if label == "full_year_all_sensor"
+                 else f"{label}, launch {i + 1} of the row")
+        count = int(torch.isfinite(u).sum())  # u is +inf on the cells the OI leaves out
+        err, _, _ = compare_curve(u, regs, count, oi_scan, f"16 {label} curve")
+        k_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(u, regs), reps=50)
+        p_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_plain(u, regs), reps=10)
+        bms, by = ak_curve_bound(count, u.numel(), regs.numel(), u.dtype)
+        shapes.append({"path": f"bench {label}", "cells": u.numel(), "factors": regs.numel(),
+                       "dtype": str(u.dtype).replace("torch.", ""), "max_abs_err": err,
+                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by})
+        log(f"16 ak_curve at the {label} shape ({u.numel()} cells, {count} valid, x "
+            f"{regs.numel()} factors, {u.dtype}): max_abs_err {err:.3e}, kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return shapes
+
+
+def phase_bench(dev, oi_scan, cov) -> tuple:
+    """Phase 16: every row of ``oisat_tpu_torch.bench`` that needs no product
+    files, once each at a cut size and one repeat (each row raises when its
+    own check fails), the curve kernel against its plain version on the
+    inputs the months and the year handed it, then ``python -m
+    oisat_tpu_torch.bench`` in a child process.  Returns the two kernels'
+    launches over the rows, their timing repeats included, the curve row's
+    left out, and the ``other_shapes`` entries."""
+    import os
+
+    from oisat_tpu_torch import bench
+
+    log("== phase 16: the port's bench (every row without product files, one repeat)")
+    t0 = time.perf_counter()
+    # the curve row is the kernel against its plain version: its launches
+    # stay out of the count
+    curve = bench.bench_curve_phase(reps=10, repeats=1, device=dev)
+    oi_scan.ak_curve_sums_kernel.launches = 0
+    cov.build_covariance_kernel.launches = 0
+    kept = []
+
+    def tapped(label, row):
+        with curve_tap(oi_scan, kept, label):
+            return row()
+
+    rows = [curve,
+            bench.bench_oi(reps=10, repeats=1, device=dev),
+            bench.bench_oi(curve_impl="plain", metric_name="oi_analysis_throughput_plain",
+                           reps=10, repeats=1, device=dev),
+            bench.bench_kalman(2048, reps=1, repeats=1, device=dev),
+            *bench.regrid_rows(orbits=2, repeats=1, device=dev),
+            bench.bench_regrid_pipelined(orbits=2, repeats=1, device=dev),
+            tapped("synthetic_month_steady",
+                   lambda: bench.bench_month(4, repeats=1, device=dev)),
+            tapped("synthetic_month_fused",
+                   lambda: bench.bench_month(4, fused=True, repeats=1, device=dev)),
+            tapped("synthetic_month_fused_oifull",
+                   lambda: bench.bench_month(4, fused=True, oi_method="full", repeats=1,
+                                             device=dev)),
+            tapped("full_year_all_sensor",
+                   lambda: bench.bench_year(orbits=4, months=1, device=dev)),
+            bench.bench_oi_bandwidth(1536, 3072, reps=5, repeats=1, device=dev),
+            bench.bench_matfree(2048, device=dev)]
+    launches = (oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches)
+    year = [k for k in kept if k[0] == "full_year_all_sensor"]
+    check(len(year) == len(bench.YEAR_PLAN),
+          f"16: the year's month launched the curve {len(year)} times, not one a kind")
+    check(len(kept) <= launches[0], f"16: {len(kept)} inputs kept of {launches[0]} launches")
+    shapes = bench_curve_shapes(oi_scan, kept)
+    del kept
+    name = torch.cuda.get_device_name(0)
+    for row in rows:
+        d = row["detail"]
+        check(set(row) == BENCH_KEYS and d["backend"] == "torch", f"16: keys of {row}")
+        check(d["device"]["platform"] == "gpu" and d["device"]["name"] == name,
+              f"16: {row['metric']} device {d['device']}")
+        check(np.isfinite(row["value"]) and row["value"] > 0, f"16: {row['metric']} value")
+        if "median" in d:
+            check(all(np.isfinite(d[k]) for k in BENCH_TIMED), f"16: {row['metric']} times")
+        log(f"16 {row['metric']}: {row['value']:.6g} {row['unit']}"
+            + (f", vs_baseline {row['vs_baseline']:.4g}" if row["vs_baseline"] else ""))
+    check(launches[0] > 0 and launches[1] > 0, f"16: the rows launched the kernels {launches}")
+    full = next(r for r in rows if r["metric"] == "synthetic_month_fused_oifull")["detail"]
+    log(f"16 the 4-orbit full month: {full['oi_cells']} cells, branch {full['branch']}, "
+        f"solver {full.get('solver')}; ak_curve launches {launches[0]}, covariance "
+        f"{launches[1]}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "oisat_tpu_torch.bench"], cwd=here,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"16: python -m oisat_tpu_torch.bench: {proc.stderr[-2000:]}")
+    out = proc.stdout.strip().splitlines()
+    check(len(out) == 1, f"16: python -m oisat_tpu_torch.bench printed {len(out)} lines")
+    head = json.loads(out[0])
+    check(set(head) == BENCH_KEYS and head["metric"] == "oi_analysis_throughput",
+          f"16: the headline line {head}")
+    log(f"16 python -m oisat_tpu_torch.bench: one line, {head['metric']} "
+        f"{head['value']:.6g} {head['unit']} (median of {head['detail']['repeats']})")
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return launches, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
-        return 1
-    if importlib.util.find_spec("oisat_tpu_torch") is None:
-        print("chip_smoke: the port (oisat_tpu_torch) is not importable here: run it from "
-              "the root of the repository", file=sys.stderr)
         return 1
     from oisat_tpu_torch import native
     from oisat_tpu_torch.driver import oisatgmi
@@ -2199,10 +2298,11 @@ def main() -> int:
             "card only; no mesh over real cards, and no speed-up across cards, is measured")
     log(f"phase 14 (a, d, e, f) took {time.perf_counter() - t0:.1f} s")
     phase_host_modules()
+    (by_path["bench_rows"], cov_bench), bench_shapes = phase_bench(dev, oi_scan, cov)
     curve_entry["launches"] = sum(by_path.values())
     curve_entry["launches_by_path"] = by_path
     # the same kernel held against its plain version at the other months' shapes
-    curve_entry["other_shapes"] = [mopitt_shape, gosat_shape, ssmis_shape]
+    curve_entry["other_shapes"] = [mopitt_shape, gosat_shape, ssmis_shape, *bench_shapes]
     log(f"ak_curve launches on the driven paths: {by_path}")
     for n, (ms, pms, bms, by) in cov_times.items():
         log(f"covariance at n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
@@ -2236,10 +2336,11 @@ def main() -> int:
         "route": "cuda",
         "source": "oisat_tpu_torch/csrc/covariance.cu",
         "replaces": "oisat_tpu/ops/kernels/covariance.py:32",
-        "launches": full["launches"] + cov_desroziers + cov_job,
+        "launches": full["launches"] + cov_desroziers + cov_job + cov_bench,
         "launches_by_path": {"omi_full_month": full["launches"],
                              "desroziers_full_month": cov_desroziers,
-                             "job_omi_full_month": cov_job},
+                             "job_omi_full_month": cov_job,
+                             "bench_rows": cov_bench},
         "max_abs_err": full["err"],
         "ms": full["ms"],
         "plain_ms": full["plain_ms"],

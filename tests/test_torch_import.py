@@ -3,8 +3,9 @@ imports nothing of the JAX package: every slice module (and chip_smoke.py)
 imports with those and ``oisat_tpu`` blocked in ``sys.modules``, and a CPU
 regrid through the port's native plan builder (whose import is lazy), a
 MOPITT-like staged month with a Desroziers pass and its daily files, the
-job runner's dispatch with its diag fields, and a full OI above a lowered
-dense limit (the SLQ knee and the matrix-free solve) and a month step over a
+job runner's dispatch with its diag fields, one row of the port's bench
+(``oisat_tpu_torch.bench``, whose file rows raise ImportError naming h5py),
+and a full OI above a lowered dense limit (the SLQ knee and the matrix-free solve) and a month step over a
 2 x 2 mesh of CPU shards run so blocked; a call that needs
 one of the absent packages raises ImportError naming it.  The host-only modules (the downloader, the
 four ExtData / emission tools, the batch submitters) import with requests,
@@ -86,6 +87,8 @@ SLICE_MODULES = [
     "oisat_tpu_torch.examples",
     "oisat_tpu_torch.examples.synthetic_month",
     "oisat_tpu_torch.entry",
+    "oisat_tpu_torch.utils.roofline",
+    "oisat_tpu_torch.bench",
     "chip_smoke",
 ]
 
@@ -198,6 +201,20 @@ with tempfile.TemporaryDirectory() as folder:
     sys.modules["requests"] = None
 """
 
+# the port's bench: one row on the CPU, and a row that writes product files
+# raises ImportError naming h5py
+_BENCH = """
+from oisat_tpu_torch import bench
+line = bench.bench_curve_phase(n=4096, reps=1, repeats=1, device="cpu")
+assert line["detail"]["backend"] == "torch" and line["detail"]["device"] == {"platform": "cpu"}
+try:
+    bench.bench_tropomi(device="cpu")
+except ImportError as e:
+    assert "h5py" in str(e), e
+else:
+    raise AssertionError("bench_tropomi did not raise ImportError")
+"""
+
 # the matrix-free full OI: a 12 x 16 domain above a lowered dense limit
 _FULL = """
 from oisat_tpu_torch.ops import oi_full as T
@@ -239,6 +256,7 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
         _FULL,
         _MESH,
         _EDGES,
+        _BENCH,
         f"leaked = [m for m in {_BLOCKED!r} if sys.modules.get(m) is not None]",
         "leaked += [m for m in sys.modules if m.startswith('oisat_tpu.')]",
         "assert not leaked, leaked",
@@ -252,7 +270,8 @@ def test_slice_imports_without_jax_h5py_yaml_matplotlib():
 
 def test_no_module_of_the_port_imports_the_jax_package():
     """No import statement of oisat_tpu in the port or chip_smoke.py (the
-    eight host-only modules among the files read), and no module-level import
+    eight host-only modules, the bench and its roofline module among the
+    files read), and no module-level import
     of a package the card's machine lacks: those sit inside functions."""
     import re
 
@@ -261,6 +280,9 @@ def test_no_module_of_the_port_imports_the_jax_package():
     files = sorted((REPO / "oisat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     edge_files = {REPO / (m.replace(".", "/") + ".py") for m in EDGE_MODULES}
     assert len(edge_files) == 8 and edge_files <= set(files)
+    bench_files = {REPO / "oisat_tpu_torch" / "bench.py",
+                   REPO / "oisat_tpu_torch" / "utils" / "roofline.py"}
+    assert bench_files <= set(files)
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line) or top.match(line)]
