@@ -113,23 +113,33 @@ Phases (any failure raises, exit code != 0):
     where it is not, one line says that the CPU tests hold it.
 
 13. The matrix-free full OI (L = 300 km; the branch of ``oi_full`` above
-    the dense limits, which launches neither kernel: both counts are held
-    at 0).  (a) Phase 8's staged MOPITT session through ``oi("MOPITT",
-    method="full")``: 64,261 valid cells padded to 64,512, the SLQ knee,
-    the Nystrom PCG (k = 2,048), the Woodbury diagonal, the sampled
-    float64 residual; solver, preconditioner, finite residuals, a finite
-    posterior, -0.05 < AK < 1.05 and err >= 0, and a warm repeat through
-    ``oi_full`` bitwise equal, with its stage split.  (b) 60 orbits over
-    North America (20-60 N x 140-60 W, 10,449 cells) through
-    ``analyze_month_fused(oi_method="full")``: the SLQ knee and the exact
-    float64 solve on the card ("direct_f64_dev", exact diagonal, residual
-    under the gate), a warm repeat bitwise equal, and the float32 Nystrom
-    PCG on the same inputs and factor within twice its ``resid_abs`` of the
-    direct increment.  (c) The SLQ curve on phase 7's CONUS cells within
-    rtol 0.04 of the dense scan's, and the Jacobi branch on a 64 x 64
-    one-degree window against the dense solve (tests/test_oi_full.py's
-    bounds).  Then one ``_b_matmat`` sweep at 13a's shape, K = 8 and 16,
-    beside its operations bound.
+    the dense limits: every B.V sweep launches ``csrc/b_matmat.cu``, whose
+    launches each path counts and requires, while the curve and covariance
+    kernels' counts are held at 0).  (a) Phase 8's staged MOPITT session
+    through ``oi("MOPITT", method="full")``: 64,261 valid cells padded to
+    64,512, the SLQ knee, the Nystrom PCG (k = 2,048), the Woodbury
+    diagonal, the sampled float64 residual; solver, preconditioner, finite
+    residuals, a finite posterior, -0.05 < AK < 1.05 and err >= 0, and a
+    warm repeat through ``oi_full`` bitwise equal, with its stage split.
+    (b) 60 orbits over North America (20-60 N x 140-60 W, 10,449 cells)
+    through ``analyze_month_fused(oi_method="full")``: the SLQ knee and the
+    exact float64 solve on the card ("direct_f64_dev", exact diagonal,
+    residual under the gate), a warm repeat bitwise equal, and the float32
+    Nystrom PCG on the same inputs and factor within twice its
+    ``resid_abs`` of the direct increment.  (c) The SLQ curve on phase 7's
+    CONUS cells within rtol 0.04 of the dense scan's, and the Jacobi branch
+    on a 64 x 64 one-degree window against the dense solve
+    (tests/test_oi_full.py's bounds).  (a), (b) and (c) run again with
+    ``cov_impl="plain"`` (torch-op sweeps): the same knee and branch, the
+    increments within the two solves' ``resid_abs`` where both converged,
+    13a's ``cg_resid`` within 2x the plain run's; both runs' stage times.
+    (d) The kernel against the plain engine at every sweep shape of these
+    solves and the bench's: 64,512 cells with K = 1, 8, 16, 2,048, 11,264
+    with K = 8 (block 1,024), 65,536 with K = 1 and 2,048 (block 2,048):
+    one-hot columns of V (C itself) bitwise, random V within 1e-5 of max |Y|
+    and no further from a float64 product than twice the plain version, a
+    repeat bitwise, the times beside the bound and each engine's peak
+    device memory.
 
 14. The mesh path (``oisat_tpu_torch.parallel``), on logical shards of the
     card (a mesh whose positions all name ``cuda:0``): (a) the sharded curve
@@ -146,9 +156,10 @@ Phases (any failure raises, exit code != 0):
     numbers); (c) phase 8's MOPITT granules through
     ``analyze_month_fused(mesh=)`` against the mesh-less month (the same
     factor, STAGED_RTOL) and ``entry.dryrun_multichip(4)``; (d) the sharded
-    ``_b_matmat`` at 13b's 11,264 cells, K = 8, over 4 shards within 1e-5 of
-    the largest |Y| and bitwise on repeat, and 13c's Jacobi window with the
-    mesh within atol 1e-4; (e) one OMI orbit's regrid over the mesh, bitwise
+    ``_b_matmat`` (``b_matmat.cu`` once per position) at 13b's 11,264
+    cells, K = 8, over 4 shards within 1e-5 of the largest |Y| and bitwise
+    on repeat, and 13c's Jacobi window with the mesh within atol 1e-4; (e)
+    one OMI orbit's regrid over the mesh, bitwise
     the single-device regrid; (f) (a) and (b) over real cards where
     ``torch.cuda.device_count() > 1``, else one line says there is one card.
     On one card these times are the overhead of sharding, not a speed-up.
@@ -197,8 +208,10 @@ numpy seeds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on its path, error, times and bound:
-``ak_curve``, ``covariance`` and ``ak_curve_sharded`` (the same
-``ak_curve.cu``, launched once per grid shard on phase 14's mesh paths).
+``ak_curve``, ``covariance``, ``ak_curve_sharded`` (the same
+``ak_curve.cu``, launched once per grid shard on phase 14's mesh paths) and
+``b_matmat`` (the B.V sweep, at 13a's PCG shape, the other shapes of 13d
+in ``other_shapes``).
 """
 
 from __future__ import annotations
@@ -222,6 +235,7 @@ import torch
 from oisat_tpu_torch.utils.roofline import (  # the card's ceilings, bounds, timers
     ak_curve_bound,
     bound_ms,
+    b_matmat_bound,
     covariance_bound,
     cuda_ms,
     division_floor_ms,
@@ -232,7 +246,7 @@ from oisat_tpu_torch.utils.roofline import (  # the card's ceilings, bounds, tim
 N_ORBITS = 60
 HEADLINE = (1440, 2880)
 FACTORS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-KERNELS = ("ak_curve", "covariance")
+KERNELS = ("ak_curve", "covariance", "b_matmat")
 COV_SIZES = (6144, 10240)  # the dense scan's and the dense solve's largest B
 COV_EDGE = (1, 63, 65, 1000, 6143)  # N = 1 and N off the 64-cell tile
 COV_RTOL = 2e-4  # + atol 1e-6 * max sigma^2: the CPU tests' bounds
@@ -1218,19 +1232,54 @@ def log_matfree(what: str, info: dict, first_s: float, warm_s: float, warm_ms: d
         f"({info['resid_abs'] / info['stat_norm']:.2e} of it); convergence WARNING "
         f"{'printed' if warned else 'not printed'}")
     log(f"{what}: first call {first_s:.3f} s, warm {warm_s:.3f} s (host clock); warm "
-        "oi_full = " + " + ".join(f"{k.split('.', 1)[1]} {v:.2f}" for k, v in warm_ms.items()
-                                  if k.startswith("oi_full.")) + " ms; peak device memory "
-        f"{peak_gb:.2f} GB")
+        f"oi_full = {stage_split(warm_ms)} ms; peak device memory {peak_gb:.2f} GB")
 
 
-def phase_matfree_mopitt(dev, oi_scan, cov, mopitt, grid):
+def stage_split(stage_ms: dict) -> str:
+    return " + ".join(f"{k.split('.', 1)[1]} {v:.2f}" for k, v in stage_ms.items()
+                      if k.startswith("oi_full."))
+
+
+def hold_engines(what: str, kern: dict, plain: dict, knees: tuple, inc: tuple) -> None:
+    """The sweep kernel's month against the plain engine's on the same
+    inputs: the same knee and branch; where both converged, increments
+    within the sum of the two solves' field-error bounds (each is within
+    its ``resid_abs`` of the exact increment); the kernel's ``cg_resid``
+    within 2x the plain run's."""
+    from oisat_tpu_torch.bench import _converged
+
+    def converged(info):
+        return _converged(info["cg_resid"], info["resid_abs"], info["stat_norm"])
+
+    check(knees[0] == knees[1], f"{what}: knee {knees[0]} with the kernel, {knees[1]} plain")
+    for key in ("solver", "precond"):
+        check(kern[key] == plain[key], f"{what}: {key} {kern[key]} vs plain {plain[key]}")
+    gap = float(np.linalg.norm(inc[0] - inc[1]))
+    both = converged(kern) and converged(plain)
+    if both:
+        bound = kern["resid_abs"] + plain["resid_abs"]
+        check(gap <= bound, f"{what}: increments {gap:.3e} apart, over {bound:.3e}")
+    check(kern["cg_resid"] <= 2.0 * plain["cg_resid"] or kern["cg_resid"] <= 1e-6,
+          f"{what}: cg_resid {kern['cg_resid']:.3e} vs plain {plain['cg_resid']:.3e}")
+    log(f"{what}: kernel vs plain sweep engine: the same knee ({knees[0]}), solver "
+        f"{kern['solver']}, precond {kern['precond']}; cg_iters {kern['cg_iters']} / "
+        f"{plain['cg_iters']}, cg_resid {kern['cg_resid']:.3e} / {plain['cg_resid']:.3e}, "
+        f"resid_abs {kern['resid_abs']:.3e} / {plain['resid_abs']:.3e}; "
+        f"||inc_kernel - inc_plain|| {gap:.3e}"
+        + ("" if both else " (not both converged: not held to the bounds)"))
+
+
+def phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, grid):
     """Phase 13a: phase 8's staged MOPITT session (a copy: phases 11 and 12
     read the original) through ``oi("MOPITT", method="full")``: 64,261 valid
     cells padded to 64,512, above every dense limit and REFINE_MAX_CELLS, so
     the SLQ knee, the Nystrom PCG (k = 2,048), the Woodbury diagonal and the
-    sampled float64 residual.  A warm repeat through ``oi_full`` gives its
-    stage split, the same solve and bitwise-equal fields.  Returns the
-    padded cells (``oi_full.Padded``) for the sweep's timing."""
+    sampled float64 residual, every sweep on ``b_matmat.cu``.  A warm
+    repeat through ``oi_full`` gives its stage split, the same solve and
+    bitwise-equal fields; the same cells through ``oi_full(cov_impl=
+    "plain")`` (torch-op sweeps) give the same knee and branch.  Returns the
+    padded cells (``oi_full.Padded``) for the sweep's timing and the
+    kernel's launches on the main path."""
     from oisat_tpu_torch.ops.oi_full import compact, oi_full, pad_for_matfree
 
     log("== phase 13: the matrix-free full OI (L = 300 km)")
@@ -1238,6 +1287,7 @@ def phase_matfree_mopitt(dev, oi_scan, cov, mopitt, grid):
     obj.stage_ms = {}
     torch.cuda.reset_peak_memory_stats()
     oi_scan.ak_curve_sums_kernel.launches = cov.build_covariance_kernel.launches = 0
+    sweep.b_matmat_kernel.launches = 0
     # ---- the main path of this slice: the staged OI with oi_method full ----
     with knees_picked() as knees:
         t0 = time.perf_counter()
@@ -1246,10 +1296,12 @@ def phase_matfree_mopitt(dev, oi_scan, cov, mopitt, grid):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
     counts = kernel_counts(oi_scan, cov)
+    launches = sweep.b_matmat_kernel.launches
     # ---- end of the main path ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(counts == (0, 0), f"13a: the matrix-free path launched {counts} (ak_curve, "
           "covariance) kernels")
+    check(launches > 0, "13a: the matrix-free path never launched b_matmat.cu")
     d = obj.oi_diagnostics
     check(d.get("solver") == "pcg_f32" and d.get("precond") == "nystrom(k=2048)",
           f"13a: solver {d.get('solver')} precond {d.get('precond')}")
@@ -1282,22 +1334,36 @@ def phase_matfree_mopitt(dev, oi_scan, cov, mopitt, grid):
         check(warm.info[key] == d[key], f"13a: warm {key} {warm.info[key]} vs {d[key]}")
     pv = pad_for_matfree(cp)
     log(f"13a MOPITT month, oi_method full: {cp.idx.size} valid cells of {both.size}, padded "
-        f"to {pv.xa.size}; (ak_curve, covariance) launches {counts}: the matrix-free path "
-        "launches neither kernel; the warm repeat bitwise equal")
+        f"to {pv.xa.size}; (ak_curve, covariance) launches {counts}, b_matmat {launches}; "
+        "the warm repeat bitwise equal")
     log_matfree("13a MOPITT month", d, first_s, warm_s, warm_ms, peak_gb, "WARNING" in said,
                 float(grid[knees[0]]))
-    return pv
+    plain_ms: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with knees_picked() as plain_knees:
+        t0 = time.perf_counter()
+        plain = quietly(oi_full, *inputs, LENGTH_SCALE_KM, regularization_on=True,
+                        device=dev, cov_impl="plain", stage_ms=plain_ms)[0]
+        plain_s = time.perf_counter() - t0
+    log(f"13a plain sweep engine: {plain_s:.3f} s (host clock); oi_full = "
+        f"{stage_split(plain_ms)} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    hold_engines("13a", warm.info, plain.info, (warm_knees[0], plain_knees[0]),
+                 (warm.increment[both], plain.increment[both]))
+    return pv, launches
 
 
-def phase_matfree_north_america(dev, oi_scan, cov):
+def phase_matfree_north_america(dev, oi_scan, cov, sweep):
     """Phase 13b: 60 OMI-shaped orbits over North America (TEMPO's field of
     regard, 20-60 N x 140-60 W, 81 x 129 = 10,449 cells) through
     ``analyze_month_fused(oi_method="full")``: above the scan's dense limit,
     under REFINE_MAX_CELLS once padded, so the SLQ knee and the exact float64
     solve on the card.  ``oi_full_matfree(refine=0)`` (the float32 Nystrom
     PCG) on the same compacted inputs and factor lands within twice its own
-    ``resid_abs`` of the direct increment.  Returns the padded cells for
-    phase 14d's sweep."""
+    ``resid_abs`` of the direct increment; the month with
+    ``cov_impl="plain"`` picks the same knee and branch.  Returns the
+    padded cells for phase 14d's sweep and the sweep kernel's launches on
+    the main path."""
     from oisat_tpu_torch.entry import NORTH_AMERICA, synthetic_regional_month
     from oisat_tpu_torch.ops.oi_full import (DENSE_SCAN_MAX_CELLS, DEVICE_EXACT_RESID_GATE,
                                              REFINE_MAX_CELLS, compact, oi_full_matfree,
@@ -1315,13 +1381,16 @@ def phase_matfree_north_america(dev, oi_scan, cov):
     reader = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
     torch.cuda.reset_peak_memory_stats()
     oi_scan.ak_curve_sums_kernel.launches = cov.build_covariance_kernel.launches = 0
+    sweep.b_matmat_kernel.launches = 0
     # ---- the main path of this slice: the fused month, oi_method full ----
     with knees_picked() as knees:
         obj, _, first_s, first_ms = full_month(reader, dev)
     counts = kernel_counts(oi_scan, cov)
+    launches = sweep.b_matmat_kernel.launches
     # ---- end of the main path ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(counts == (0, 0), f"13b: the matrix-free path launched {counts} kernels")
+    check(launches > 0, "13b: the matrix-free path never launched b_matmat.cu")
     d = obj.oi_diagnostics
     cp = compact(*obj.full_oi_inputs())
     pv = pad_for_matfree(cp)
@@ -1344,13 +1413,18 @@ def phase_matfree_north_america(dev, oi_scan, cov):
     ratio = 0.5 * xa[both] / so[both]
     log(f"13b North America month: {cp.idx.size} valid cells padded to {pv.xa.size}, "
         f"sigma_b/sigma_o median {np.median(ratio):.1f}; (ak_curve, covariance) launches "
-        f"{counts}; the warm repeat bitwise equal")
+        f"{counts}, b_matmat {launches}; the warm repeat bitwise equal")
     log_matfree("13b North America month", d, first_s, warm_s, warm_ms, peak_gb,
                 False, r)
-    log("13b first call: oi_full = " + " + ".join(
-        f"{k.split('.', 1)[1]} {v:.2f}" for k, v in first_ms.items() if k.startswith("oi_full."))
-        + " ms; analyze_month_fused stages " + " + ".join(
+    log(f"13b first call: oi_full = {stage_split(first_ms)} ms; analyze_month_fused stages "
+        + " + ".join(
         f"{k} {v:.2f}" for k, v in first_ms.items() if "." not in k) + " ms")
+    with knees_picked() as plain_knees:
+        plain, _, plain_s, plain_ms = full_month(reader, dev, cov_impl="plain")
+    log(f"13b plain sweep engine: {plain_s:.3f} s (host clock); oi_full = "
+        f"{stage_split(plain_ms)} ms")
+    hold_engines("13b", d, plain.oi_diagnostics, (knees[0], plain_knees[0]),
+                 (obj.increment_OI[both], plain.increment_OI[both]))
 
     # the float32 Nystrom PCG on the same compacted inputs and factor
     t0 = time.perf_counter()
@@ -1365,16 +1439,19 @@ def phase_matfree_north_america(dev, oi_scan, cov):
     log(f"13b cross-check: oi_full_matfree(refine=0) {info['solver']} {info['precond']}, "
         f"{info['cg_iters']} iterations, f64_resid {info['f64_resid']:.3e}, {pcg_s:.3f} s; "
         f"||inc_pcg - inc_direct|| {gap:.3e} <= 2 x resid_abs {info['resid_abs']:.3e}")
-    return pv
+    return pv, launches
 
 
-def phase_matfree_vs_dense(dev, full, grid):
+def phase_matfree_vs_dense(dev, full, grid, sweep):
     """Phase 13c: (i) the SLQ curve on phase 7's compacted CONUS cells against
-    the dense scan's curve (rtol 0.04; the two knees are logged, not held:
-    that regime's knee is rounding-sensitive); (ii) the Jacobi branch against
-    the dense solve on a 64 x 64 one-degree window with bench.bench_matfree's
-    mild fields (tests/test_oi_full.py's bounds).  Returns the window's inputs
-    and its Jacobi result for phase 14d."""
+    the dense scan's curve (rtol 0.04; the SLQ and dense knees are logged,
+    not held: that regime's knee is rounding-sensitive), and the same curve
+    with the plain sweep engine, whose knee must be the kernel's; (ii) the
+    Jacobi branch against the dense solve on a 64 x 64 one-degree window with
+    bench.bench_matfree's mild fields (tests/test_oi_full.py's bounds), with
+    both sweep engines, within atol 1e-4 of each other.  Returns the window's
+    inputs and its Jacobi result for phase 14d and the sweep kernel's
+    launches."""
     from oisat_tpu_torch.ops.knee import kneedle_index_np
     from oisat_tpu_torch.ops.oi_full import (compact, mean_ak_curve_slq, oi_full_dense,
                                              oi_full_dense_scan, oi_full_matfree)
@@ -1382,17 +1459,27 @@ def phase_matfree_vs_dense(dev, full, grid):
     cp = compact(*full["direct"].full_oi_inputs())
     vec = [torch.as_tensor(v.astype(np.float32), device=dev)
            for v in (cp.xa, cp.y, cp.sb, cp.so, cp.lat, cp.lon)]
+    sweep.b_matmat_kernel.launches = 0
     t0 = time.perf_counter()
     slq = mean_ak_curve_slq((cp.lat, cp.lon), cp.sb, cp.so, grid, LENGTH_SCALE_KM,
                             n_probes=64, device=dev)
     slq_s = time.perf_counter() - t0
+    launches = sweep.b_matmat_kernel.launches
+    t0 = time.perf_counter()
+    slq_plain = mean_ak_curve_slq((cp.lat, cp.lon), cp.sb, cp.so, grid, LENGTH_SCALE_KM,
+                                  n_probes=64, device=dev, cov_impl="plain")
+    slq_plain_s = time.perf_counter() - t0
+    check(kneedle_index_np(grid, slq) == kneedle_index_np(grid, slq_plain),
+          "13c: the SLQ knee moved with the plain sweep engine")
     dense = oi_full_dense_scan(*vec, LENGTH_SCALE_KM, grid.astype(np.float32))[5]
     dense = dense.cpu().numpy().astype(np.float64)
     np.testing.assert_allclose(slq, dense, rtol=0.04, err_msg="13c SLQ vs dense scan curve")
     log(f"13c (i) SLQ curve on the CONUS month's {cp.idx.size} cells (64 probes, "
         f"{slq_s:.3f} s) within rtol 0.04 of the dense scan's (largest "
         f"{float(np.max(np.abs(slq / dense - 1.0))):.2e}); knees: SLQ "
-        f"{grid[kneedle_index_np(grid, slq)]:.1f}, dense {grid[kneedle_index_np(grid, dense)]:.1f}")
+        f"{grid[kneedle_index_np(grid, slq)]:.1f}, dense {grid[kneedle_index_np(grid, dense)]:.1f}"
+        f"; plain sweep engine {slq_plain_s:.3f} s, the same knee, curves "
+        f"{float(np.max(np.abs(slq / slq_plain - 1.0))):.2e} apart (rtol)")
 
     # 31.5 S-31.5 N: the grid pitch stays above the 75 km cluster radius,
     # so every cell is probed itself (as in tests/test_oi_full.py's domain)
@@ -1406,10 +1493,19 @@ def phase_matfree_vs_dense(dev, full, grid):
     ref = oi_full_dense(*(torch.as_tensor(a.astype(np.float32), device=dev) for a in args),
                         LENGTH_SCALE_KM)
     ref = [r.cpu().numpy().astype(np.float64) for r in ref]
+    before = sweep.b_matmat_kernel.launches
     t0 = time.perf_counter()
     xb, ak, inc, err, info = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi",
                                              probe_sep_factor=6.0, cg_tol=1e-7, device=dev)
     jac_s = time.perf_counter() - t0
+    launches += sweep.b_matmat_kernel.launches - before
+    t0 = time.perf_counter()
+    plain = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi", probe_sep_factor=6.0,
+                            cg_tol=1e-7, device=dev, cov_impl="plain")
+    plain_s = time.perf_counter() - t0
+    check(plain[4]["precond"] == info["precond"] == "jacobi", "13c: the Jacobi branch")
+    for name, a, b in zip(("xb", "ak", "increment", "err"), (xb, ak, inc, err), plain[:4]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=f"13c plain engine {name}")
     np.testing.assert_allclose(xb, ref[0], rtol=2e-4, atol=2e-4, err_msg="13c xb")
     np.testing.assert_allclose(inc, ref[2], rtol=0, atol=5e-4, err_msg="13c increment")
     np.testing.assert_allclose(ak, ref[1], rtol=0, atol=2e-3, err_msg="13c AK")
@@ -1419,33 +1515,100 @@ def phase_matfree_vs_dense(dev, full, grid):
         f"{info['cg_resid']:.2e}, {jac_s:.3f} s; largest |diff| xb "
         f"{np.max(np.abs(xb - ref[0])):.2e}, inc {np.max(np.abs(inc - ref[2])):.2e}, AK "
         f"{np.max(np.abs(ak - ref[1])):.2e}, err {np.max(np.abs(err - ref[3])):.2e}")
-    return args, (xb, ak, inc, err)
+    log(f"13c (ii) plain sweep engine: {plain[4]['cg_iters']} iterations, cg_resid "
+        f"{plain[4]['cg_resid']:.2e}, {plain_s:.3f} s; within atol 1e-4 of the kernel's "
+        f"(largest |diff| xb {np.max(np.abs(xb - plain[0])):.2e}); b_matmat launches "
+        f"{launches}")
+    return (args, (xb, ak, inc, err)), launches
 
 
-def phase_sweep(dev, pv) -> list:
-    """One ``_b_matmat`` sweep on 13a's padded cells (N = 64,512), K = 8 and
-    16 (CUDA events, warm) beside its operations bound: N^2 * 10 elementwise
-    operations (3 sub, 3 mul, 2 add, 1 scale, 1 exp) + 2 N^2 K for the
-    contraction, over the card's float32 peak."""
+def sweep_case(dev, sweep, lat, lon, sb, k: int, block: int, what: str) -> dict:
+    """``b_matmat.cu`` against the plain engine at one sweep shape: one-hot V
+    (each output one product: C itself) bitwise; random V within 1e-5 of
+    max |Y|, no further from the float64 product than twice the plain
+    version's distance; a repeat bitwise; CUDA-event times of one sweep
+    (``_b_matmat``, sigma_b included) beside the bound and each engine's
+    peak device memory."""
     from oisat_tpu_torch.ops.oi_full_matfree import _b_matmat, _unit_vectors
 
-    n = pv.xa.size
-    rng = np.random.default_rng(4)
-    u3 = _unit_vectors(pv.lat, pv.lon, dev)
-    sbt = torch.as_tensor(pv.sb.astype(np.float32), device=dev)
-    out = []
-    for k in (8, 16):
-        v = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=dev)
+    n = lat.size
+    u3 = _unit_vectors(lat, lon, dev).contiguous()
+    sbt = torch.as_tensor(sb.astype(np.float32), device=dev)
+    rng = np.random.default_rng(4 + k)
+    chunks = n // block
+    cols = torch.as_tensor(rng.choice(n, k, replace=False), device=dev)
+    onehot = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    onehot[cols, torch.arange(k, device=dev)] = 1.0
+    one_k = sweep.b_matmat_kernel(u3, onehot, LENGTH_SCALE_KM, block, 0, chunks)
+    one_p = sweep.b_matmat_plain(u3, onehot, LENGTH_SCALE_KM, block, 0, chunks)
+    torch.cuda.synchronize()
+    differ = int((one_k != one_p).sum())
+    check(differ == 0, f"{what}: {differ} of {one_k.numel()} one-hot outputs (elements of C) "
+          "differ from the plain engine's")
+    del onehot, one_k, one_p
+    v = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=dev)
+    dv = sbt[:, None] * v
+    got = sweep.b_matmat_kernel(u3, dv, LENGTH_SCALE_KM, block, 0, chunks)
+    again = sweep.b_matmat_kernel(u3, dv, LENGTH_SCALE_KM, block, 0, chunks)
+    want = sweep.b_matmat_plain(u3, dv, LENGTH_SCALE_KM, block, 0, chunks)
+    ref = sweep.b_matmat_reference(u3, dv, LENGTH_SCALE_KM, block, 0, chunks)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: two kernel sweeps differ")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    err_k = float((got.double() - ref).abs().max())
+    err_p = float((want.double() - ref).abs().max())
+    check(err <= 1e-5 * scale, f"{what}: kernel {err:.3e} from plain (max |Y| {scale:.3e})")
+    check(err_k <= 2.0 * err_p, f"{what}: kernel {err_k:.3e} from float64, plain {err_p:.3e}")
+    del got, again, want, ref, dv
+    out = {}
+    for impl in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024), reps=3)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        bms, by = bound_ms(4 * (3 * n + n + 2 * n * k), 10.0 * n * n + 2.0 * n * n * k,
-                           torch.float32)
-        out.append((k, ms, bms, by))
-        log(f"_b_matmat sweep N={n}, K={k}, block 1024 (CUDA events, warm): {ms:.3f} ms, "
-            f"bound {bms:.4f} ms ({by}), {ms / bms:.1f}x the bound; peak device memory "
-            f"{peak_gb:.2f} GB; nvidia-smi {smi_line()}")
+        _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block, impl=impl)
+        torch.cuda.synchronize()
+        out[f"{impl}_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[f"{impl}_ms"] = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block,
+                                                      impl=impl), reps=3)
+    bms, by = b_matmat_bound(n, k)
+    out.update(cells=n, k=k, block=block, err=err, err_f64=err_k, plain_err_f64=err_p,
+               bound_ms=bms, bound_by=by)
+    log(f"{what} sweep N={n}, K={k}, block {block}: C bitwise (one-hot), |kernel - plain| "
+        f"{err:.3e} ({err / scale:.2e} of max |Y|), from float64 kernel {err_k:.3e} / plain "
+        f"{err_p:.3e}, bitwise on repeat; kernel {out['kernel_ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), kernel at "
+        f"{bms / out['kernel_ms']:.1%} of it; peak device memory above the inputs kernel "
+        f"{out['kernel_peak_gb']:.3f} / plain {out['plain_peak_gb']:.3f} GB; "
+        f"nvidia-smi {smi_line()}")
     return out
+
+
+def phase_sweep(dev, sweep, mopitt_pv, na_pv) -> list:
+    """Phase 13d: ``b_matmat.cu`` against the plain engine (:func:`sweep_case`)
+    at the sweep shapes of the smoke's and the bench's solves: 13a's 64,512
+    padded cells with K = 1 (a PCG iteration), 8, 16 (SLQ, Lanczos) and 2,048
+    (the Nystrom sketch), 13b's 11,264 with K = 8, each block 1,024, and the
+    bench's 65,536 cells (bench.matfree_inputs) with block 2,048, K = 1 and
+    2,048.  These launches compare the kernel with its plain version and
+    are not counted on any path."""
+    from oisat_tpu_torch.bench import matfree_inputs
+
+    log("== phase 13d: the B.V sweep kernel against the plain engine")
+    t0 = time.perf_counter()
+    cases = []
+    for k in (1, 8, 16, 2048):
+        cases.append(sweep_case(dev, sweep, mopitt_pv.lat, mopitt_pv.lon, mopitt_pv.sb, k,
+                                1024, "13d MOPITT"))
+    cases.append(sweep_case(dev, sweep, na_pv.lat, na_pv.lon, na_pv.sb, 8, 1024,
+                            "13d North America"))
+    _, _, sigb, _, lat, lon, _ = matfree_inputs()
+    # bench.py's 64,800 cells padded to 65,536, as oi_full_matfree pads them
+    lat, lon, sigb = (np.concatenate([a, np.zeros(65536 - a.size)]) for a in (lat, lon, sigb))
+    for k in (1, 2048):
+        cases.append(sweep_case(dev, sweep, lat, lon, sigb, k, 2048, "13d bench 64k"))
+    log(f"phase 13d took {time.perf_counter() - t0:.1f} s")
+    return cases
 
 # ---------------------------------------------------------------------------
 # phase 14: the mesh path (logical shards of one card; real cards where there
@@ -1676,11 +1839,14 @@ def phase_mesh_mopitt(dev, oi_scan, month, grid, mesh) -> dict:
     return {"mopitt_fused_month_mesh": launches, "dryrun_multichip_4": dry}
 
 
-def phase_mesh_sweep(dev, pv, jacobi, mesh) -> dict:
+def phase_mesh_sweep(dev, sweep, pv, jacobi, mesh) -> dict:
     """Phase 14d: ``_b_matmat`` over 4 logical shards at 13b's padded cells
     (11,264, K = 8): within 1e-5 of the largest |Y| of the unsharded sweep,
     bitwise on repeat, CUDA-event times of both; then 13c's Jacobi window
-    through ``oi_full_matfree(mesh=)`` within atol 1e-4 of 13c's result."""
+    through ``oi_full_matfree(mesh=)`` within atol 1e-4 of 13c's result.
+    Every sweep launches ``b_matmat.cu`` once per mesh position over its
+    chunk range; the launches of the sharded sweeps and the Jacobi solve are
+    counted."""
     from oisat_tpu_torch.ops.oi_full_matfree import _b_matmat, _unit_vectors, oi_full_matfree
 
     n = pv.xa.size
@@ -1689,9 +1855,16 @@ def phase_mesh_sweep(dev, pv, jacobi, mesh) -> dict:
     v = torch.as_tensor(np.random.default_rng(4).standard_normal((n, 8)).astype(np.float32),
                         device=dev)
     ref = _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024)
+    sweep.b_matmat_kernel.launches = 0
+    # ---- the mesh path of the sweep ----
     got = _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024, mesh)
     again = _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, 1024, mesh)
     torch.cuda.synchronize()
+    launches = sweep.b_matmat_kernel.launches
+    # ---- end of the mesh path ----
+    used = min(mesh.size, n // 1024)  # positions that get a chunk
+    check(launches == 2 * used, f"14d: {launches} b_matmat launches for two sweeps over "
+          f"{used} positions")
     check(torch.equal(got, again), "14d: two sharded sweeps differ")
     gap = float((got - ref).abs().max())
     scale = float(ref.abs().max())
@@ -1703,16 +1876,18 @@ def phase_mesh_sweep(dev, pv, jacobi, mesh) -> dict:
         f"({gap / scale:.2e} of max |Y|), bitwise on repeat; sharded {mesh_ms:.3f} ms vs "
         f"unsharded {ms:.3f} ms (CUDA events, warm); nvidia-smi {smi_line()}")
     args, want = jacobi
+    before = sweep.b_matmat_kernel.launches
     t0 = time.perf_counter()
     res = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi", probe_sep_factor=6.0,
                           cg_tol=1e-7, device=dev, mesh=mesh)
     jac_s = time.perf_counter() - t0
+    launches += sweep.b_matmat_kernel.launches - before
     for name, a, b in zip(("xb", "ak", "increment", "err"), res[:4], want):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=f"14d Jacobi {name}")
     log(f"14d Jacobi window over the mesh: {res[4]['cg_iters']} iterations, cg_resid "
         f"{res[4]['cg_resid']:.2e}, {jac_s:.3f} s; within atol 1e-4 of 13c's (largest "
-        f"|diff| xb {np.max(np.abs(res[0] - want[0])):.2e})")
-    return dict(cells=n, ms=ms, mesh_ms=mesh_ms, gap=gap)
+        f"|diff| xb {np.max(np.abs(res[0] - want[0])):.2e}); b_matmat launches {launches}")
+    return dict(cells=n, ms=ms, mesh_ms=mesh_ms, gap=gap, launches=launches)
 
 
 def phase_mesh_regrid(dev, orbit, lon2d, lat2d, mesh) -> None:
@@ -1978,12 +2153,12 @@ def bench_curve_shapes(oi_scan, kept) -> list:
     return shapes
 
 
-def phase_bench(dev, oi_scan, cov) -> tuple:
+def phase_bench(dev, oi_scan, cov, sweep) -> tuple:
     """Phase 16: every row of ``oisat_tpu_torch.bench`` that needs no product
     files, once each at a cut size and one repeat (each row raises when its
     own check fails), the curve kernel against its plain version on the
     inputs the months and the year handed it, then ``python -m
-    oisat_tpu_torch.bench`` in a child process.  Returns the two kernels'
+    oisat_tpu_torch.bench`` in a child process.  Returns the three kernels'
     launches over the rows, their timing repeats included, the curve row's
     left out, and the ``other_shapes`` entries."""
     import os
@@ -1997,6 +2172,7 @@ def phase_bench(dev, oi_scan, cov) -> tuple:
     curve = bench.bench_curve_phase(reps=10, repeats=1, device=dev)
     oi_scan.ak_curve_sums_kernel.launches = 0
     cov.build_covariance_kernel.launches = 0
+    sweep.b_matmat_kernel.launches = 0
     kept = []
 
     def tapped(label, row):
@@ -2021,7 +2197,8 @@ def phase_bench(dev, oi_scan, cov) -> tuple:
                    lambda: bench.bench_year(orbits=4, months=1, device=dev)),
             bench.bench_oi_bandwidth(1536, 3072, reps=5, repeats=1, device=dev),
             bench.bench_matfree(2048, device=dev)]
-    launches = (oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches)
+    launches = (oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches,
+                sweep.b_matmat_kernel.launches)
     year = [k for k in kept if k[0] == "full_year_all_sensor"]
     check(len(year) == len(bench.YEAR_PLAN),
           f"16: the year's month launched the curve {len(year)} times, not one a kind")
@@ -2039,11 +2216,15 @@ def phase_bench(dev, oi_scan, cov) -> tuple:
             check(all(np.isfinite(d[k]) for k in BENCH_TIMED), f"16: {row['metric']} times")
         log(f"16 {row['metric']}: {row['value']:.6g} {row['unit']}"
             + (f", vs_baseline {row['vs_baseline']:.4g}" if row["vs_baseline"] else ""))
-    check(launches[0] > 0 and launches[1] > 0, f"16: the rows launched the kernels {launches}")
+    check(all(n > 0 for n in launches), f"16: the rows launched the kernels {launches}")
+    mf = next(r for r in rows if r["metric"] == "oi_full_matfree_64k")["detail"]
+    check(mf["sweep_engine"] == "kernel" and mf["b_matmat_launches"] > 0,
+          f"16: the matrix-free row's sweep {mf['sweep_engine']}, {mf['b_matmat_launches']} "
+          "launches")
     full = next(r for r in rows if r["metric"] == "synthetic_month_fused_oifull")["detail"]
     log(f"16 the 4-orbit full month: {full['oi_cells']} cells, branch {full['branch']}, "
         f"solver {full.get('solver')}; ak_curve launches {launches[0]}, covariance "
-        f"{launches[1]}")
+        f"{launches[1]}, b_matmat {launches[2]}")
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, "-m", "oisat_tpu_torch.bench"], cwd=here,
                           capture_output=True, text=True, timeout=600)
@@ -2067,6 +2248,7 @@ def main() -> int:
     from oisat_tpu_torch import native
     from oisat_tpu_torch.driver import oisatgmi
     from oisat_tpu_torch.entry import synthetic_month
+    from oisat_tpu_torch.ops.kernels import b_matmat as sweep
     from oisat_tpu_torch.ops.kernels import covariance as cov
     from oisat_tpu_torch.ops.kernels import oi_scan
     from oisat_tpu_torch.ops.kernels._build import build_log, load_library
@@ -2269,7 +2451,8 @@ def main() -> int:
     mesh_paths = {"omi_month_step_2x2": mesh_month["launches"]}
     mesh_paths.update(phase_mesh_mopitt(dev, oi_scan, mopitt_job, regs_np, mesh2))
     del mopitt_job
-    mopitt_cells = phase_matfree_mopitt(dev, oi_scan, cov, mopitt, regs_np)
+    mopitt_cells, sweep_paths = phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, regs_np)
+    sweep_paths = {"mopitt_oi_full_13a": sweep_paths}
     by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
                                                                     full["reader"])
     del mopitt
@@ -2280,15 +2463,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["job_omi_fallback_staged"], cov_job = phase_job_conus(dev, oi_scan, cov, full,
                                                                   regs_np)
-    north_america_cells = phase_matfree_north_america(dev, oi_scan, cov)
-    jacobi = phase_matfree_vs_dense(dev, full, regs_np)
-    phase_sweep(dev, mopitt_cells)
+    north_america_cells, sweep_paths["north_america_month_13b"] = phase_matfree_north_america(
+        dev, oi_scan, cov, sweep)
+    jacobi, sweep_paths["slq_and_jacobi_13c"] = phase_matfree_vs_dense(dev, full, regs_np, sweep)
+    sweep_cases = phase_sweep(dev, sweep, mopitt_cells, north_america_cells)
 
     log("== phase 14 (a, d, e, f): the mesh path on logical shards of the card")
     t0 = time.perf_counter()
     headline = phase_mesh_curve(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np,
                                 logical_meshes(dev))
-    phase_mesh_sweep(dev, north_america_cells, jacobi, mesh2)
+    sweep_paths["mesh_sweep_14d"] = phase_mesh_sweep(dev, sweep, north_america_cells, jacobi,
+                                                     mesh2)["launches"]
     phase_mesh_regrid(dev, orbits[0], lon2d, lat2d, mesh2)
     if n_cards > 1:
         phase_mesh_curve(dev, oi_scan, curve_inputs, kneedle_index_np, regs_np,
@@ -2298,7 +2483,8 @@ def main() -> int:
             "card only; no mesh over real cards, and no speed-up across cards, is measured")
     log(f"phase 14 (a, d, e, f) took {time.perf_counter() - t0:.1f} s")
     phase_host_modules()
-    (by_path["bench_rows"], cov_bench), bench_shapes = phase_bench(dev, oi_scan, cov)
+    (by_path["bench_rows"], cov_bench, sweep_paths["bench_rows"]), bench_shapes = phase_bench(
+        dev, oi_scan, cov, sweep)
     curve_entry["launches"] = sum(by_path.values())
     curve_entry["launches_by_path"] = by_path
     # the same kernel held against its plain version at the other months' shapes
@@ -2330,6 +2516,34 @@ def main() -> int:
             k: v[k] for k in ("ms", "one_ms", "plain_ms", "bound_ms", "shards")}
             for (name, dt), v in headline.items()},
     }
+    log(f"b_matmat launches on the driven paths: {sweep_paths}")
+    main_case = sweep_cases[0]  # 13a's PCG sweep: N = 64,512, K = 1
+
+    def case_entry(c):
+        return {"cells": c["cells"], "k": c["k"], "block": c["block"], "ms": c["kernel_ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "max_abs_err": c["err"], "kernel_peak_gb": c["kernel_peak_gb"],
+                "plain_peak_gb": c["plain_peak_gb"]}
+
+    sweep_entry = {
+        "name": "b_matmat",
+        "route": "cuda",
+        "source": "oisat_tpu_torch/csrc/b_matmat.cu",
+        "replaces": "oisat_tpu/ops/oi_full.py:204",  # _b_matmat: XLA there, not a pallas_call
+        "launches": sum(sweep_paths.values()),
+        "launches_by_path": sweep_paths,
+        "max_abs_err": main_case["err"],
+        "ms": main_case["kernel_ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the sweep
+        "cells": main_case["cells"],
+        "k": main_case["k"],
+        "block": main_case["block"],
+        "dtype": "float32",
+        "other_shapes": [case_entry(c) for c in sweep_cases[1:]],
+    }
     log(f"nvidia-smi: {smi_line()}")
     print(json.dumps({"kernels": [curve_entry, {
         "name": "covariance",
@@ -2349,7 +2563,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call builds B
         "cells": full["cells"],
         "dtype": "float32",
-    }, sharded_entry]}), flush=True)
+    }, sharded_entry, sweep_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

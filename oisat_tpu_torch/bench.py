@@ -70,6 +70,7 @@ from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.datamodel import ctm_model, satellite_amf, satellite_opt, satellite_ssmis
 from oisat_tpu_torch.driver import oisatgmi
 from oisat_tpu_torch.obs_operators import amf_recal
+from oisat_tpu_torch.ops.kernels import b_matmat as sweep
 from oisat_tpu_torch.ops.kernels import covariance as cov
 from oisat_tpu_torch.ops.kernels import oi_scan
 from oisat_tpu_torch.ops.knee import kneedle_index_np
@@ -538,7 +539,9 @@ def bench_matfree(n_cells=MATFREE_CELLS, rows=180, block=2048, device="cuda") ->
         return res, time.perf_counter() - t0
 
     first, first_s = call()
+    launches = sweep.b_matmat_kernel.launches
     (xb, ak, inc, err, info), t = call()
+    launches = sweep.b_matmat_kernel.launches - launches
     _check(all(np.array_equal(a, b) for a, b in zip(first[:4], (xb, ak, inc, err))),
            "matfree: a repeat differs from the first call")
     _check(all(np.isfinite(f).all() for f in (xb, ak, inc, err)), "matfree: non-finite fields")
@@ -549,8 +552,13 @@ def bench_matfree(n_cells=MATFREE_CELLS, rows=180, block=2048, device="cuda") ->
     converged = _converged(info["cg_resid"], resid_abs, stat_norm)
     size = ("full: bench.py's 64,800 cells" if xb.size == MATFREE_CELLS
             else f"cut: {xb.size} cells of bench.py's {MATFREE_CELLS}")
+    npad = -(-xb.size // block) * block
+    sweep_bound, sweep_by = rl.b_matmat_bound(npad, 1)
     return _emit("oi_full_matfree_64k", t, "s", None, {
         **info, "cells": xb.size, "size": size, "rows": rows, "block": block, "first_s": first_s,
+        "sweep_engine": "kernel" if dev.type == "cuda" else "plain",
+        "b_matmat_launches": launches,
+        "sweep_bound_ms_k1": sweep_bound, "sweep_bound_by": sweep_by,
         "repeats": 1, "timer": "host_clock", "stat_norm": stat_norm,
         "resid_abs_over_stat_norm": None if resid_abs is None else resid_abs / stat_norm,
         "converged": converged}, dev)

@@ -1,0 +1,169 @@
+"""The matrix-free B.V sweep's column-chunk contraction: CUDA kernel, plain version.
+
+Counterpart of the inner part of :func:`oisat_tpu.ops.oi_full._b_matmat`
+(XLA in the JAX package, not Pallas).  For float32 unit vectors ``u3``
+(N, 3), ``dv = sigma_b[:, None] * v`` (N, K) and a range [c0, c1) of
+``block``-wide column chunks, both engines return the (N, K) float32
+
+    P = sum over c in [c0, c1), in chunk order, of C[:, chunk c] @ dv[chunk c]
+    C_ij = exp(-kappa |u_i - u_j|^2 / 2),   kappa = (R / L)^2
+
+each C_ij from explicit coordinate differences, each chunk's partial
+accumulated in float32 over at most ``block`` terms.
+
+* :func:`b_matmat_kernel` launches ``csrc/b_matmat.cu`` (CUDA tensors only)
+  and counts its launches in ``b_matmat_kernel.launches``.
+* :func:`b_matmat_plain` is the same contraction as torch ops (the CPU
+  tests use it; ``chip_smoke.py`` compares the kernel with it on the card).
+* :func:`b_matmat_reference` is the float64 golden of the same P, on the
+  tensors' device.
+* :data:`B_MATMAT_IMPLS` maps "auto" (the plain version for CPU tensors,
+  the kernel for CUDA tensors, no fallback), "kernel" and "plain" to them;
+  the names are :data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`'s,
+  so one ``cov_impl`` picks both covariance engines.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from oisat_tpu_torch.ops.kernels._build import load_library
+from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM
+
+__all__ = ["B_MATMAT_IMPLS", "SLAB", "MAX_BLOCK", "b_matmat_kernel", "b_matmat_plain",
+           "b_matmat_reference", "neg_half_kappa"]
+
+_SOURCE = "b_matmat"
+SLAB = 128  # the kernel's column tile: ``block`` must be a multiple of it
+MAX_BLOCK = 2048  # the widest chunk whose C tile fits the kernel's shared memory
+NARROW_MAX_K = 32  # wider V goes through the shared-memory C tile, in steps of 4 columns
+
+
+def _kappa(length_scale_km: float) -> float:
+    return (EARTH_RADIUS_KM / length_scale_km) ** 2
+
+
+def neg_half_kappa(length_scale_km: float) -> float:
+    """float32(-0.5 kappa): the constant torch's ``mul_(-0.5 * kappa)``
+    applies to a float32 tensor, and the one the kernel multiplies by."""
+    return float(np.float32(-0.5 * _kappa(length_scale_km)))
+
+
+def b_matmat_plain(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, block: int,
+                   c0: int, c1: int) -> torch.Tensor:
+    """P (N, K) for chunks [c0, c1) as torch ops on ``u3``'s device: for each
+    ``block`` rows the tile is generated in (chunk, row, column) layout, the
+    difference and square in place (two (c1 - c0, block, block) temporaries
+    at a time), and contracted by one ``torch.bmm`` whose chunk partials are
+    summed after."""
+    kappa = _kappa(length_scale_km)
+    n = u3.shape[0]
+    nchunks = n // block
+    u3c_d = u3.reshape(nchunks, block, 3)[c0:c1]
+    dv3_d = dv.reshape(nchunks, block, -1)[c0:c1]
+    rows = []
+    for s in range(0, n, block):
+        ub = u3[s:s + block]
+        d2 = None
+        for k in range(3):
+            t = (ub[None, :, None, k] - u3c_d[:, None, :, k]).square_()
+            d2 = t if d2 is None else d2.add_(t)
+        c = d2.mul_(-0.5 * kappa).exp_()  # (chunks, block_row, block_col)
+        rows.append(torch.bmm(c, dv3_d).sum(dim=0))
+        del c, d2, t
+    return torch.cat(rows)
+
+
+def b_matmat_reference(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float,
+                       block: int, c0: int, c1: int, rows: int = 1024) -> torch.Tensor:
+    """P (N, K) in float64 on ``u3``'s device: the float64 values of ``u3``
+    and ``dv``, C in float64 from the same differences, ``rows`` rows of C at
+    a time against chunks [c0, c1) in one float64 product."""
+    kappa = _kappa(length_scale_km)
+    u = u3.to(torch.float64)
+    cols = u[c0 * block:c1 * block]
+    d = dv.to(torch.float64)[c0 * block:c1 * block]
+    out = []
+    for s in range(0, u.shape[0], rows):
+        d2 = ((u[s:s + rows, None, :] - cols[None, :, :]) ** 2).sum(-1)
+        out.append(torch.exp(-0.5 * kappa * d2) @ d)
+    return torch.cat(out)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signature declared (pointers and
+    the stream as c_void_p: ctypes would cut them to 32-bit ints)."""
+    lib = load_library(_SOURCE)
+    lib.b_matmat_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                 ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    lib.b_matmat_f32.restype = ctypes.c_int
+    lib.b_matmat_error_string.argtypes = [ctypes.c_int]
+    lib.b_matmat_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def b_matmat_kernel(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, block: int,
+                    c0: int, c1: int) -> torch.Tensor:
+    """P (N, K) for chunks [c0, c1) from ``csrc/b_matmat.cu``.
+
+    ``u3`` (N, 3) and ``dv`` (N, K): contiguous float32 tensors on one CUDA
+    device, N a multiple of ``block``, ``block`` a multiple of :data:`SLAB`
+    and at most :data:`MAX_BLOCK`, 0 <= c0 < c1 <= N / block.  Raises on
+    anything else; launches on the current stream without synchronising.
+    K > 32 columns are padded to a multiple of 4 with zero columns."""
+    for name, t, dim in (("u3", u3, 2), ("dv", dv, 2)):
+        if t.device.type != "cuda":
+            raise ValueError(f"b_matmat kernel needs CUDA tensors, got {name} on {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"b_matmat kernel takes float32, got {name} {t.dtype}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"b_matmat kernel needs a contiguous 2-D {name}")
+    if u3.device != dv.device:
+        raise ValueError("u3 and dv must share one device")
+    n, k = dv.shape
+    if u3.shape != (n, 3):
+        raise ValueError(f"u3 must be ({n}, 3), got {tuple(u3.shape)}")
+    if block % SLAB or not 0 < block <= MAX_BLOCK:
+        raise ValueError(f"b_matmat kernel: block={block} must be a multiple of {SLAB} "
+                         f"and at most {MAX_BLOCK}")
+    if n % block:
+        raise ValueError(f"b_matmat kernel: N={n} must be a multiple of block={block}")
+    if not 0 <= c0 < c1 <= n // block:
+        raise ValueError(f"b_matmat kernel: chunk range [{c0}, {c1}) outside [0, {n // block})")
+    if k == 0:
+        return torch.zeros((n, 0), dtype=torch.float32, device=dv.device)
+    kp = k if k <= NARROW_MAX_K else -(-k // 4) * 4
+    if kp != k:
+        dv = torch.nn.functional.pad(dv, (0, kp - k))
+    out = torch.empty((n, kp), dtype=torch.float32, device=dv.device)
+    lib = _library()
+    with torch.cuda.device(dv.device):
+        stream = torch.cuda.current_stream(dv.device).cuda_stream
+        rc = lib.b_matmat_f32(u3.data_ptr(), dv.data_ptr(), n, kp, block, c0, c1,
+                              neg_half_kappa(length_scale_km), out.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.b_matmat_error_string(rc).decode()
+        raise RuntimeError(f"b_matmat kernel launch failed: CUDA error {rc} ({msg})")
+    b_matmat_kernel.launches += 1
+    return out if kp == k else out[:, :k].contiguous()
+
+
+b_matmat_kernel.launches = 0
+
+
+def _auto(u3, dv, length_scale_km, block, c0, c1):
+    if u3.device.type == "cpu":
+        return b_matmat_plain(u3, dv, length_scale_km, block, c0, c1)
+    return b_matmat_kernel(u3, dv, length_scale_km, block, c0, c1)
+
+
+# "auto": the kernel for CUDA tensors, the plain version for CPU tensors;
+# "kernel" / "plain" force one engine (chip_smoke.py compares the two).
+B_MATMAT_IMPLS = {"auto": _auto, "kernel": b_matmat_kernel, "plain": b_matmat_plain}

@@ -451,8 +451,12 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     """Grid-shaped full-covariance OI on ``device`` (the card unless the
     caller asks for the CPU): compaction, normalisation, the solve, and
     scatter-back to float64 numpy grids (NaN off the valid cells).
-    ``cov_impl`` picks the covariance engine of the dense branch (see
-    :data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`).
+    ``cov_impl`` picks the covariance engine: the dense branch's B builder
+    (:data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`) and the
+    matrix-free branch's B.V sweep
+    (:data:`oisat_tpu_torch.ops.kernels.b_matmat.B_MATMAT_IMPLS`), both
+    "auto" (the kernel on the card, torch ops on the CPU), "kernel" or
+    "plain".
 
     Up to ``DENSE_SCAN_MAX_CELLS`` (``regularization_on``: the 99-factor
     scan) or ``DENSE_MAX_CELLS`` (without) valid cells: the dense solve and
@@ -491,7 +495,8 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     if n > (DENSE_SCAN_MAX_CELLS if regularization_on else DENSE_MAX_CELLS):
         clock.mark("compact")
         xb_v, ak_v, inc_v, err_v, info = _oi_full_large(
-            cp, float(length_scale_km), regularization_on, dev, clock, mesh=mesh)
+            cp, float(length_scale_km), regularization_on, dev, clock, mesh=mesh,
+            cov_impl=cov_impl)
         # the solver saw normalised fields: the two field-scaled numbers
         # leave in physical units (the relative cg_resid is scale-free)
         for key in ("resid_abs", "stat_norm"):
@@ -578,24 +583,26 @@ def pad_for_matfree(cp: Compacted, block: int = MATFREE_BLOCK) -> Padded:
 
 
 def slq_knee(pv: Padded, length_scale_km: float, device, block: int = MATFREE_BLOCK,
-             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS, mesh=None):
+             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS, mesh=None,
+             cov_impl: str = "auto"):
     """(reg_index, curve): the Kneedle knee of the full-domain SLQ mean-AK
     curve (:func:`mean_ak_curve_slq`) over the regularization grid."""
     grid = regularization_grid()
     curve = mean_ak_curve_slq((pv.lat, pv.lon), pv.sb, pv.so, grid, length_scale_km,
                               block=block, n_probes=n_probes, m=m, valid=pv.valid,
-                              device=device, mesh=mesh)
+                              device=device, mesh=mesh, cov_impl=cov_impl)
     with np.errstate(invalid="ignore"):
         return int(kneedle_index_np(grid, curve, fallback=0)), curve
 
 
 def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
-                   clock: StageClock = _UNTIMED, block: int = MATFREE_BLOCK, mesh=None):
+                   clock: StageClock = _UNTIMED, block: int = MATFREE_BLOCK, mesh=None,
+                   cov_impl: str = "auto"):
     """The matrix-free branch of :func:`oi_full`, as the twin's
     ``_oi_full_large``: the compacted cells padded to a ``block`` multiple;
     with ``regularization_on`` the knee of the full-domain SLQ mean-AK curve
     (:func:`slq_knee`) picks the factor r and sigma_b is scaled by sqrt(r);
-    then :func:`oi_full_matfree`.  Sets ``info["stat_norm"]`` (the
+    then :func:`oi_full_matfree`, every sweep on ``cov_impl``'s engine.  Sets ``info["stat_norm"]`` (the
     posterior-std norm) and prints the twin's WARNING when the solve did not
     converge and its field-error bound ``resid_abs`` is not well under
     ``stat_norm``.  Returns (xb, ak, increment, err, info), compacted, in the
@@ -604,13 +611,13 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
     pv = pad_for_matfree(cp, block)
     sb_v = pv.sb
     if regularization_on:
-        reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh)
+        reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh, cov_impl=cov_impl)
         # r B = (sqrt(r) sigma_b) C (sqrt(r) sigma_b)
         sb_v = sb_v * np.sqrt(float(regularization_grid()[reg_index]))
         clock.mark("slq")
     xb_v, ak_v, inc_v, err_v, info = oi_full_matfree(
         pv.xa, pv.y, sb_v, pv.so, pv.lat, pv.lon, length_scale_km, block=block,
-        valid=pv.valid, device=dev, clock=clock, mesh=mesh)
+        valid=pv.valid, device=dev, clock=clock, mesh=mesh, cov_impl=cov_impl)
     # numerics against statistics: the solve's field-error bound resid_abs
     # against the posterior-std norm the analysis is determined to
     stat = float(np.linalg.norm(err_v[:n]))

@@ -11,7 +11,8 @@ compare with:
 * :func:`bound_ms`: the least time for a function, the larger of its bytes
   over the HBM rate and its operations over the peak of its type, and the
   bounds of the two kernels (:func:`ak_curve_bound`,
-  :func:`covariance_bound`, :func:`division_floor_ms`);
+  :func:`covariance_bound`, :func:`b_matmat_bound`,
+  :func:`division_floor_ms`);
 * the timers: :func:`cuda_ms` (CUDA events around a run of launches, the
   mean), :func:`median_ms` (several such estimates: median, min, max) and
   :func:`host_s` (the host clock around work that ends in a device
@@ -27,9 +28,10 @@ import time
 
 import torch
 
-__all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "COV_OPS_PER_ELEMENT", "MUFU_PER_SM_CLOCK",
+__all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "COV_OPS_PER_ELEMENT", "SWEEP_OPS_PER_ELEMENT",
+           "MUFU_PER_SM_CLOCK",
            "cuda_ms", "median_ms", "host_s", "spread", "bound_ms", "ak_curve_bound",
-           "covariance_bound", "division_floor_ms", "smi_query", "smi_line"]
+           "covariance_bound", "b_matmat_bound", "division_floor_ms", "smi_query", "smi_line"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FLOP/s outside the
 # tensor cores; the card's power limit is printed beside every time
@@ -37,6 +39,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 COV_OPS_PER_ELEMENT = 19  # covariance.cu: 2 sub, 1 add, 9 mul, 1 div, 1 neg,
 # 2 compares (the clip), 2 sin, 1 exp -- each sin / exp counted once
+SWEEP_OPS_PER_ELEMENT = 10  # b_matmat.cu: 3 sub, 3 mul, 2 add, 1 scale, 1 exp
 MUFU_PER_SM_CLOCK = 16  # Hopper's special-function unit: reciprocals per SM per clock
 MIN_REPEATS = 5
 
@@ -116,6 +119,15 @@ def covariance_bound(n: int) -> tuple:
     """lat, lon, sigma read once, the (n, n) float32 B written once;
     ``COV_OPS_PER_ELEMENT`` operations per element."""
     return bound_ms(3 * n * 4 + n * n * 4, COV_OPS_PER_ELEMENT * n * n, torch.float32)
+
+
+def b_matmat_bound(n: int, k: int) -> tuple:
+    """One B.V sweep of ``_b_matmat`` at N = ``n``, K = ``k``: u3 (N, 3),
+    sigma_b (N,) and V (N, K) read once, Y (N, K) written once, all
+    float32; ``SWEEP_OPS_PER_ELEMENT`` operations for each of the N^2
+    elements of C and 2 N^2 K for the contraction."""
+    return bound_ms(4 * (3 * n + n + 2 * n * k),
+                    SWEEP_OPS_PER_ELEMENT * n * n + 2.0 * n * n * k, torch.float32)
 
 
 def division_floor_ms(n_valid: int, nfac: int, max_sm_mhz: float) -> float:

@@ -330,3 +330,84 @@ def test_sharded_kernel_on_two_streams(cuda):
         b = _sharded(sa, so, regs, torch.float32, mesh, oi_scan.ak_curve_sums)
     torch.cuda.synchronize()
     assert torch.equal(a, ref) and torch.equal(b, ref)
+
+
+# ---- the matrix-free B.V sweep (csrc/b_matmat.cu) --------------------------------
+
+def _sweep_inputs(n, k, cuda, seed=0):
+    from oisat_tpu_torch.ops.oi_full_matfree import _unit_vectors
+
+    rng = np.random.default_rng(seed)
+    u3 = _unit_vectors(rng.uniform(20, 60, n), rng.uniform(-140, -60, n), cuda).contiguous()
+    sb = torch.as_tensor(np.abs(rng.normal(1.0, 0.3, n)).astype(np.float32), device=cuda)
+    v = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=cuda)
+    return u3, sb, v
+
+
+@pytest.mark.parametrize("n,block", [(2048, 1024), (4096, 1024), (4096, 2048), (2048, 128)])
+@pytest.mark.parametrize("k", [1, 3, 16, 130])
+def test_b_matmat_kernel_matches_plain(cuda, n, block, k):
+    """One-hot V: each output is one product, so C itself must agree bitwise;
+    random V: within 1e-5 of max |Y| of the plain version, no further from
+    the float64 product than twice the plain version's distance; a repeat
+    is bitwise."""
+    from oisat_tpu_torch.ops.kernels import b_matmat as BM
+
+    u3, sb, v = _sweep_inputs(n, k, cuda, seed=n + k)
+    nchunks = n // block
+    cols = torch.as_tensor(np.random.default_rng(k).choice(n, k, replace=False), device=cuda)
+    onehot = torch.zeros((n, k), dtype=torch.float32, device=cuda)
+    onehot[cols, torch.arange(k, device=cuda)] = 1.0
+    got = BM.b_matmat_kernel(u3, onehot, 300.0, block, 0, nchunks)
+    want = BM.b_matmat_plain(u3, onehot, 300.0, block, 0, nchunks)
+    assert torch.equal(got, want)
+    dv = sb[:, None] * v
+    got = BM.b_matmat_kernel(u3, dv, 300.0, block, 0, nchunks)
+    want = BM.b_matmat_plain(u3, dv, 300.0, block, 0, nchunks)
+    ref = BM.b_matmat_reference(u3, dv, 300.0, block, 0, nchunks)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float((got - ref).abs().max()) <= 2.0 * float((want - ref).abs().max())
+    assert torch.equal(got, BM.b_matmat_kernel(u3, dv, 300.0, block, 0, nchunks))
+    # a chunk range of its own, as a mesh position sweeps it
+    part = BM.b_matmat_kernel(u3, dv, 300.0, block, nchunks // 2, nchunks)
+    pref = BM.b_matmat_reference(u3, dv, 300.0, block, nchunks // 2, nchunks)
+    assert float((part - pref).abs().max()) <= 1e-5 * float(pref.abs().max())
+
+
+def test_b_matmat_auto_launches_the_kernel_on_cuda(cuda):
+    from oisat_tpu_torch.ops import oi_full_matfree as M
+    from oisat_tpu_torch.ops.kernels import b_matmat as BM
+    from oisat_tpu_torch.parallel.mesh import make_mesh
+
+    u3, sb, v = _sweep_inputs(4096, 8, cuda)
+    before = BM.b_matmat_kernel.launches
+    got = M._b_matmat(u3, sb, v, 300.0, 1024)
+    assert BM.b_matmat_kernel.launches == before + 1
+    plain = M._b_matmat(u3, sb, v, 300.0, 1024, impl="plain")
+    assert BM.b_matmat_kernel.launches == before + 1
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    mesh = make_mesh(3, devices=[cuda] * 3)  # 4 chunks over 3 positions
+    sharded = M._b_matmat(u3, sb, v, 300.0, 1024, mesh)
+    assert BM.b_matmat_kernel.launches == before + 4
+    assert float((sharded - got).abs().max()) <= 1e-5 * scale
+    assert torch.equal(sharded, M._b_matmat(u3, sb, v, 300.0, 1024, mesh))
+
+
+def test_b_matmat_kernel_rejects_bad_input(cuda):
+    from oisat_tpu_torch.ops.kernels import b_matmat as BM
+
+    u3, sb, v = _sweep_inputs(1024, 2, cuda)
+    dv = sb[:, None] * v
+    with pytest.raises(ValueError, match="multiple of 128"):
+        BM.b_matmat_kernel(u3, dv, 300.0, 96, 0, 1)
+    with pytest.raises(ValueError, match="at most"):
+        BM.b_matmat_kernel(torch.zeros((4096, 3), device=cuda),
+                           torch.zeros((4096, 1), device=cuda), 300.0, 4096, 0, 1)
+    with pytest.raises(ValueError, match="chunk range"):
+        BM.b_matmat_kernel(u3, dv, 300.0, 256, 2, 5)
+    with pytest.raises(TypeError, match="float32"):
+        BM.b_matmat_kernel(u3.double(), dv, 300.0, 256, 0, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        BM.b_matmat_kernel(u3, dv.t().contiguous().t(), 300.0, 256, 0, 4)
