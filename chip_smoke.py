@@ -135,11 +135,12 @@ Phases (any failure raises, exit code != 0):
     13a's ``cg_resid`` within 2x the plain run's; both runs' stage times.
     (d) The kernel against the plain engine at every sweep shape of these
     solves and the bench's: 64,512 cells with K = 1, 8, 16, 2,048, 11,264
-    with K = 8 (block 1,024), 65,536 with K = 1 and 2,048 (block 2,048):
-    one-hot columns of V (C itself) bitwise, random V within 1e-5 of max |Y|
-    and no further from a float64 product than twice the plain version, a
-    repeat bitwise, the times beside the bound and each engine's peak
-    device memory.
+    with K = 8 and 130 (block 1,024), 65,536 with K = 1 and 2,048 (block
+    2,048): one-hot columns of V (C itself) bitwise, random V within 1e-5
+    of max |Y| and no further from a float64 product than twice the plain
+    version, a repeat bitwise, the times beside the bound and each engine's
+    peak device memory; at K > 32 (the tensor-core shape) also the bmm of
+    the prebuilt tiles, the library yardstick.
 
 14. The mesh path (``oisat_tpu_torch.parallel``), on logical shards of the
     card (a mesh whose positions all name ``cuda:0``): (a) the sharded curve
@@ -1528,7 +1529,9 @@ def sweep_case(dev, sweep, lat, lon, sb, k: int, block: int, what: str) -> dict:
     max |Y|, no further from the float64 product than twice the plain
     version's distance; a repeat bitwise; CUDA-event times of one sweep
     (``_b_matmat``, sigma_b included) beside the bound and each engine's
-    peak device memory."""
+    peak device memory.  At K > 32 also the library yardstick
+    (:func:`sweep_library_ms`); at K <= 32 there is none: the build of C,
+    not the contraction, is the work there."""
     from oisat_tpu_torch.ops.oi_full_matfree import _b_matmat, _unit_vectors
 
     n = lat.size
@@ -1571,27 +1574,55 @@ def sweep_case(dev, sweep, lat, lon, sb, k: int, block: int, what: str) -> dict:
         out[f"{impl}_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
         out[f"{impl}_ms"] = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block,
                                                       impl=impl), reps=3)
+    out["library_ms"] = sweep_library_ms(u3, sbt[:, None] * v, block) if k > 32 else None
     bms, by = b_matmat_bound(n, k)
     out.update(cells=n, k=k, block=block, err=err, err_f64=err_k, plain_err_f64=err_p,
                bound_ms=bms, bound_by=by)
     log(f"{what} sweep N={n}, K={k}, block {block}: C bitwise (one-hot), |kernel - plain| "
         f"{err:.3e} ({err / scale:.2e} of max |Y|), from float64 kernel {err_k:.3e} / plain "
         f"{err_p:.3e}, bitwise on repeat; kernel {out['kernel_ms']:.3f} ms, plain "
-        f"{out['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), kernel at "
+        f"{out['plain_ms']:.3f} ms, library (bmm of the prebuilt tiles) "
+        f"{'none' if k <= 32 else format(out['library_ms'], '.3f') + ' ms'}, bound "
+        f"{bms:.4f} ms ({by}), kernel at "
         f"{bms / out['kernel_ms']:.1%} of it; peak device memory above the inputs kernel "
         f"{out['kernel_peak_gb']:.3f} / plain {out['plain_peak_gb']:.3f} GB; "
         f"nvidia-smi {smi_line()}")
     return out
 
 
+def sweep_library_ms(u3, dv, block: int) -> float:
+    """The library yardstick of a wide sweep: CUDA-event ms of one
+    ``torch.bmm`` of the first row block's prebuilt (chunks, block, block)
+    float32 tile of C against ``dv`` reshaped by chunk, with its chunk sum,
+    times the N / block row blocks.  The tile is built outside the timing
+    (the plain engine's ops); the port never calls this."""
+    from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM
+
+    n, k = dv.shape
+    chunks = n // block
+    kappa = (EARTH_RADIUS_KM / LENGTH_SCALE_KM) ** 2
+    ub, uc = u3[:block], u3.reshape(chunks, block, 3)
+    d2 = None
+    for x in range(3):
+        t = (ub[None, :, None, x] - uc[:, None, :, x]).square_()
+        d2 = t if d2 is None else d2.add_(t)
+    tile = d2.mul_(-0.5 * kappa).exp_()
+    del d2, t
+    dv3 = dv.reshape(chunks, block, k)
+    ms = cuda_ms(lambda: torch.bmm(tile, dv3).sum(dim=0), reps=3)
+    del tile
+    return ms * (n // block)
+
+
 def phase_sweep(dev, sweep, mopitt_pv, na_pv) -> list:
     """Phase 13d: ``b_matmat.cu`` against the plain engine (:func:`sweep_case`)
     at the sweep shapes of the smoke's and the bench's solves: 13a's 64,512
     padded cells with K = 1 (a PCG iteration), 8, 16 (SLQ, Lanczos) and 2,048
-    (the Nystrom sketch), 13b's 11,264 with K = 8, each block 1,024, and the
-    bench's 65,536 cells (bench.matfree_inputs) with block 2,048, K = 1 and
-    2,048.  These launches compare the kernel with its plain version and
-    are not counted on any path."""
+    (the Nystrom sketch), 13b's 11,264 with K = 8 and 130 (a wide probe
+    width, padded to 144), each block 1,024, and the bench's 65,536 cells
+    (bench.matfree_inputs) with block 2,048, K = 1 and 2,048.  These
+    launches compare the kernel with its plain version and are not counted
+    on any path."""
     from oisat_tpu_torch.bench import matfree_inputs
 
     log("== phase 13d: the B.V sweep kernel against the plain engine")
@@ -1600,8 +1631,9 @@ def phase_sweep(dev, sweep, mopitt_pv, na_pv) -> list:
     for k in (1, 8, 16, 2048):
         cases.append(sweep_case(dev, sweep, mopitt_pv.lat, mopitt_pv.lon, mopitt_pv.sb, k,
                                 1024, "13d MOPITT"))
-    cases.append(sweep_case(dev, sweep, na_pv.lat, na_pv.lon, na_pv.sb, 8, 1024,
-                            "13d North America"))
+    for k in (8, 130):
+        cases.append(sweep_case(dev, sweep, na_pv.lat, na_pv.lon, na_pv.sb, k, 1024,
+                                "13d North America"))
     _, _, sigb, _, lat, lon, _ = matfree_inputs()
     # bench.py's 64,800 cells padded to 65,536, as oi_full_matfree pads them
     lat, lon, sigb = (np.concatenate([a, np.zeros(65536 - a.size)]) for a in (lat, lon, sigb))
@@ -2522,8 +2554,8 @@ def main() -> int:
     def case_entry(c):
         return {"cells": c["cells"], "k": c["k"], "block": c["block"], "ms": c["kernel_ms"],
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "max_abs_err": c["err"], "kernel_peak_gb": c["kernel_peak_gb"],
-                "plain_peak_gb": c["plain_peak_gb"]}
+                "library_ms": c["library_ms"], "max_abs_err": c["err"],
+                "kernel_peak_gb": c["kernel_peak_gb"], "plain_peak_gb": c["plain_peak_gb"]}
 
     sweep_entry = {
         "name": "b_matmat",
@@ -2537,7 +2569,9 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes the sweep
+        # K = 1: the build of C is the work, no PyTorch call computes it; the
+        # wide shapes in other_shapes carry the bmm yardstick
+        "library_ms": main_case["library_ms"],
         "cells": main_case["cells"],
         "k": main_case["k"],
         "block": main_case["block"],

@@ -17,6 +17,10 @@ accumulated in float32 over at most ``block`` terms.
   tests use it; ``chip_smoke.py`` compares the kernel with it on the card).
 * :func:`b_matmat_reference` is the float64 golden of the same P, on the
   tensors' device.
+* :func:`split_bf16x3` is the split of float32 into three bf16 pieces that
+  the kernel's wide shape (K > 32) contracts on the tensor cores: six
+  products of pieces, each exact in float32, in place of one float32
+  product (the TPU's HIGHEST precision built the same way).
 * :data:`B_MATMAT_IMPLS` maps "auto" (the plain version for CPU tensors,
   the kernel for CUDA tensors, no fallback), "kernel" and "plain" to them;
   the names are :data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`'s,
@@ -34,13 +38,16 @@ import torch
 from oisat_tpu_torch.ops.kernels._build import load_library
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM
 
-__all__ = ["B_MATMAT_IMPLS", "SLAB", "MAX_BLOCK", "b_matmat_kernel", "b_matmat_plain",
-           "b_matmat_reference", "neg_half_kappa"]
+__all__ = ["B_MATMAT_IMPLS", "SLAB", "MAX_BLOCK", "C_SPLIT_SCALE", "b_matmat_kernel",
+           "b_matmat_plain", "b_matmat_reference", "declare_abi", "neg_half_kappa",
+           "split_bf16x3"]
 
 _SOURCE = "b_matmat"
 SLAB = 128  # the kernel's column tile: ``block`` must be a multiple of it
-MAX_BLOCK = 2048  # the widest chunk whose C tile fits the kernel's shared memory
-NARROW_MAX_K = 32  # wider V goes through the shared-memory C tile, in steps of 4 columns
+MAX_BLOCK = 2048  # the widest chunk the kernel takes
+NARROW_MAX_K = 32  # wider V goes to the tensor cores, in steps of WIDE_GRANULE columns
+WIDE_GRANULE = 16  # two of mma.sync's 8-column tiles
+C_SPLIT_SCALE = 2.0 ** 24  # the kernel splits C_SPLIT_SCALE * C: every piece a normal bf16
 
 
 def _kappa(length_scale_km: float) -> float:
@@ -51,6 +58,27 @@ def neg_half_kappa(length_scale_km: float) -> float:
     """float32(-0.5 kappa): the constant torch's ``mul_(-0.5 * kappa)``
     applies to a float32 tensor, and the one the kernel multiplies by."""
     return float(np.float32(-0.5 * _kappa(length_scale_km)))
+
+
+def split_bf16x3(x: torch.Tensor) -> tuple:
+    """The three bf16 pieces (x0, x1, x2) of float32 ``x`` that
+    ``csrc/b_matmat.cu``'s wide shape contracts: x0 = bf16_rn(x),
+    x1 = bf16_rn(x - x0), x2 = bf16_rn(x - x0 - x1), each difference exact
+    in float32.
+
+    x0 + x1 + x2 == x bitwise for every float32 that is a multiple of
+    2^-133, bf16's smallest subnormal: 0, every normal |x| >= 2^-110 and
+    every float32 times :data:`C_SPLIT_SCALE` (2^24, the scale at which the
+    kernel splits C).  Below that the bits under 2^-133 are lost: the sum
+    is within 2^-134 of x (a float32 subnormal keeps its multiple of
+    2^-133 nearest to it).  Infinities and NaNs give NaN pieces."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_bf16x3 takes float32, got {x.dtype}")
+    x0 = x.to(torch.bfloat16)
+    r1 = x - x0.float()
+    x1 = r1.to(torch.bfloat16)
+    x2 = (r1 - x1.float()).to(torch.bfloat16)
+    return x0, x1, x2
 
 
 def b_matmat_plain(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, block: int,
@@ -94,19 +122,23 @@ def b_matmat_reference(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: floa
     return torch.cat(out)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signature declared (pointers and
-    the stream as c_void_p: ctypes would cut them to 32-bit ints)."""
-    lib = load_library(_SOURCE)
+def declare_abi(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with ``csrc/b_matmat.cu``'s C signature declared (pointers
+    and the stream as c_void_p: ctypes would cut them to 32-bit ints)."""
     lib.b_matmat_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                  ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
-                                 ctypes.c_void_p]
+                                 ctypes.c_void_p, ctypes.c_void_p]
     lib.b_matmat_f32.restype = ctypes.c_int
     lib.b_matmat_error_string.argtypes = [ctypes.c_int]
     lib.b_matmat_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its C signature declared."""
+    return declare_abi(load_library(_SOURCE))
 
 
 def b_matmat_kernel(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, block: int,
@@ -117,7 +149,9 @@ def b_matmat_kernel(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, 
     device, N a multiple of ``block``, ``block`` a multiple of :data:`SLAB`
     and at most :data:`MAX_BLOCK`, 0 <= c0 < c1 <= N / block.  Raises on
     anything else; launches on the current stream without synchronising.
-    K > 32 columns are padded to a multiple of 4 with zero columns."""
+    K > 32 columns are padded to a multiple of :data:`WIDE_GRANULE` with
+    zero columns, and the kernel's split pre-pass writes dv's bf16 pieces
+    over chunks [c0, c1) into a scratch tensor of 6 (c1 - c0) block K bytes."""
     for name, t, dim in (("u3", u3, 2), ("dv", dv, 2)):
         if t.device.type != "cuda":
             raise ValueError(f"b_matmat kernel needs CUDA tensors, got {name} on {t.device}")
@@ -139,15 +173,20 @@ def b_matmat_kernel(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, 
         raise ValueError(f"b_matmat kernel: chunk range [{c0}, {c1}) outside [0, {n // block})")
     if k == 0:
         return torch.zeros((n, 0), dtype=torch.float32, device=dv.device)
-    kp = k if k <= NARROW_MAX_K else -(-k // 4) * 4
+    kp = k if k <= NARROW_MAX_K else -(-k // WIDE_GRANULE) * WIDE_GRANULE
     if kp != k:
         dv = torch.nn.functional.pad(dv, (0, kp - k))
     out = torch.empty((n, kp), dtype=torch.float32, device=dv.device)
+    scratch = None
+    if kp > NARROW_MAX_K:
+        scratch = torch.empty((3, (c1 - c0) * block, kp), dtype=torch.bfloat16,
+                              device=dv.device)
     lib = _library()
     with torch.cuda.device(dv.device):
         stream = torch.cuda.current_stream(dv.device).cuda_stream
         rc = lib.b_matmat_f32(u3.data_ptr(), dv.data_ptr(), n, kp, block, c0, c1,
-                              neg_half_kappa(length_scale_km), out.data_ptr(), stream)
+                              neg_half_kappa(length_scale_km), out.data_ptr(), stream,
+                              None if scratch is None else scratch.data_ptr())
     if rc != 0:
         msg = lib.b_matmat_error_string(rc).decode()
         raise RuntimeError(f"b_matmat kernel launch failed: CUDA error {rc} ({msg})")

@@ -5,7 +5,8 @@ compare with:
 
 * the published peaks of one NVIDIA H100 SXM at its 700 W power limit
   (NVIDIA's data sheet): 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
-  tensor cores, 34 TFLOP/s float64.  A card set below 700 W runs slower
+  tensor cores, 34 TFLOP/s float64, 989 TFLOP/s dense bf16 on the tensor
+  cores.  A card set below 700 W runs slower
   under load, so every time is printed beside ``nvidia-smi``'s name and
   power limit (:func:`smi_line`);
 * :func:`bound_ms`: the least time for a function, the larger of its bytes
@@ -28,8 +29,8 @@ import time
 
 import torch
 
-__all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "COV_OPS_PER_ELEMENT", "SWEEP_OPS_PER_ELEMENT",
-           "MUFU_PER_SM_CLOCK",
+__all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "PEAK_TENSOR_BF16_FLOPS", "COV_OPS_PER_ELEMENT",
+           "SWEEP_OPS_PER_ELEMENT", "BF16_PRODUCTS_PER_F32_PRODUCT", "MUFU_PER_SM_CLOCK",
            "cuda_ms", "median_ms", "host_s", "spread", "bound_ms", "ak_curve_bound",
            "covariance_bound", "b_matmat_bound", "division_floor_ms", "smi_query", "smi_line"]
 
@@ -37,9 +38,13 @@ __all__ = ["PEAK_BYTES_S", "PEAK_FLOPS", "COV_OPS_PER_ELEMENT", "SWEEP_OPS_PER_E
 # tensor cores; the card's power limit is printed beside every time
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_TENSOR_BF16_FLOPS = 989e12  # dense, the tensor cores
 COV_OPS_PER_ELEMENT = 19  # covariance.cu: 2 sub, 1 add, 9 mul, 1 div, 1 neg,
 # 2 compares (the clip), 2 sin, 1 exp -- each sin / exp counted once
 SWEEP_OPS_PER_ELEMENT = 10  # b_matmat.cu: 3 sub, 3 mul, 2 add, 1 scale, 1 exp
+# the card's fastest float32-accurate product: six bf16 products of the
+# three-piece split (the same rate as 3xTF32's three at 495 TFLOP/s)
+BF16_PRODUCTS_PER_F32_PRODUCT = 6
 MUFU_PER_SM_CLOCK = 16  # Hopper's special-function unit: reciprocals per SM per clock
 MIN_REPEATS = 5
 
@@ -122,12 +127,18 @@ def covariance_bound(n: int) -> tuple:
 
 
 def b_matmat_bound(n: int, k: int) -> tuple:
-    """One B.V sweep of ``_b_matmat`` at N = ``n``, K = ``k``: u3 (N, 3),
-    sigma_b (N,) and V (N, K) read once, Y (N, K) written once, all
-    float32; ``SWEEP_OPS_PER_ELEMENT`` operations for each of the N^2
-    elements of C and 2 N^2 K for the contraction."""
-    return bound_ms(4 * (3 * n + n + 2 * n * k),
-                    SWEEP_OPS_PER_ELEMENT * n * n + 2.0 * n * n * k, torch.float32)
+    """One B.V sweep of ``_b_matmat`` at N = ``n``, K = ``k``, the same work
+    whatever computes it: u3 (N, 3), sigma_b (N,) and V (N, K) read once,
+    Y (N, K) written once, all float32; the operations are the build of C,
+    ``SWEEP_OPS_PER_ELEMENT`` for each of its N^2 elements at the float32
+    peak, plus the float32-accurate contraction's N^2 K products at the
+    card's fastest float32-accurate rate, ``BF16_PRODUCTS_PER_F32_PRODUCT``
+    bf16 products each at ``PEAK_TENSOR_BF16_FLOPS``: 0.67 ms at N = 64,512,
+    K = 1, and 104 ms at K = 2,048."""
+    t_bytes = 4 * (3 * n + n + 2 * n * k) / PEAK_BYTES_S * 1e3
+    t_ops = (SWEEP_OPS_PER_ELEMENT * n * n / PEAK_FLOPS[torch.float32]
+             + BF16_PRODUCTS_PER_F32_PRODUCT * 2.0 * n * n * k / PEAK_TENSOR_BF16_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def division_floor_ms(n_valid: int, nfac: int, max_sm_mhz: float) -> float:

@@ -208,3 +208,125 @@ def test_cov_impl_reaches_every_sweep_of_the_large_branch(monkeypatch):
         assert len(calls) > 1 + T.SLQ_STEPS and set(calls) == {impl}
     for f in ("xb", "averaging_kernel", "increment", "error"):
         assert np.array_equal(getattr(res["auto"], f), getattr(res["plain"], f), equal_nan=True)
+
+
+# ---- the wide shape's six-product bf16 split (csrc/b_matmat.cu, K > 32) ------------
+
+def _bits_sample(kind, rng):
+    """float32 samples of one kind for the split's exactness."""
+    if kind == "unit":  # C's range
+        x = rng.uniform(0.0, 1.0, 4096).astype(np.float32)
+        return np.concatenate([x[x > 0], np.float32([1.0, np.nextafter(1.0, 0.0)])])
+    if kind == "signed":  # dv: sigma_b * v, both signs, 1.0 and zeros
+        x = (np.abs(rng.normal(1.0, 0.3, 4096)) * rng.standard_normal(4096)).astype(np.float32)
+        return np.concatenate([x, np.float32([1.0, -1.0, 0.0, -0.0])])
+    if kind == "exponents":  # every normal binade from 2^-110 to 2^126, random bits
+        e = rng.integers(-110, 127, 4096)
+        m = rng.integers(0, 1 << 23, 4096)
+        x = np.ldexp(1.0 + m / float(1 << 23), e) * rng.choice([-1.0, 1.0], 4096)
+        return x.astype(np.float32)
+    # float32 subnormals: random mantissas and the smallest ones
+    m = np.concatenate([rng.integers(1, 1 << 23, 4096), np.arange(1, 65),
+                        np.arange(1, 128) << 16])  # the last: multiples of 2^-133
+    return (m.astype(np.uint32).view(np.float32)).copy()
+
+
+@pytest.mark.parametrize("kind", ["unit", "signed", "exponents", "subnormal_scaled"])
+def test_split_bf16x3_is_exact(kind):
+    """x0 + x1 + x2 == x bitwise, each piece a bf16, each difference exact:
+    C's values, dv's, every binade from 2^-110 up, and float32 subnormals
+    at the kernel's scale of C (2^24)."""
+    x = torch.as_tensor(_bits_sample(kind.replace("_scaled", ""), np.random.default_rng(5)))
+    if kind == "subnormal_scaled":
+        assert bool((x.abs() < torch.finfo(torch.float32).tiny).all())
+        x = x * BM.C_SPLIT_SCALE
+        assert bool((x.abs() >= torch.finfo(torch.float32).tiny).all())  # exact, normal
+    x0, x1, x2 = BM.split_bf16x3(x)
+    assert x0.dtype == x1.dtype == x2.dtype == torch.bfloat16
+    total = (x0.float() + x1.float()) + x2.float()
+    nz = x != 0  # -0.0 splits into (-0, +0, +0): its sum is +0
+    assert torch.equal(total[nz].view(torch.int32), x[nz].view(torch.int32))
+    assert bool((total[~nz] == 0).all())
+    # the pieces fall in weight: |x1| <= 2^-8 |x0|, |x2| <= 2^-8 |x1|
+    assert bool((x1.float().abs() <= x0.float().abs() * 2.0 ** -8).all())
+    assert bool((x2.float().abs() <= x1.float().abs() * 2.0 ** -8).all())
+
+
+def test_split_bf16x3_subnormals_as_documented():
+    """Unscaled float32 subnormals keep their multiple of 2^-133 (bf16's
+    smallest subnormal) nearest to them: within 2^-134, and exact where x
+    is such a multiple; non-float32 input raises."""
+    x = torch.as_tensor(_bits_sample("subnormal", np.random.default_rng(6)))
+    x0, x1, x2 = BM.split_bf16x3(x)
+    total = (x0.float() + x1.float()) + x2.float()
+    assert float((total.double() - x.double()).abs().max()) <= 2.0 ** -134
+    on_grid = torch.remainder(x.double(), 2.0 ** -133) == 0
+    assert bool(on_grid.any()) and torch.equal(total[on_grid], x[on_grid])
+    with pytest.raises(TypeError, match="float32"):
+        BM.split_bf16x3(x.double())
+
+
+def _c_rows(u3, block):
+    """C (N, N) in float32 exactly as ``b_matmat_plain`` builds it: the same
+    torch ops on the same (chunks, block, block) tiles, rows laid side by
+    side (the CPU's vectorised exp then rounds every element alike)."""
+    kappa = (EARTH_RADIUS_KM / L_KM) ** 2
+    n = u3.shape[0]
+    u3c = u3.reshape(n // block, block, 3)
+    rows = []
+    for s in range(0, n, block):
+        ub = u3[s:s + block]
+        d2 = None
+        for k in range(3):
+            t = (ub[None, :, None, k] - u3c[:, None, :, k]).square_()
+            d2 = t if d2 is None else d2.add_(t)
+        rows.append(d2.mul_(-0.5 * kappa).exp_().permute(1, 0, 2).reshape(block, n))
+    return torch.cat(rows)
+
+
+def _six_product_sweep(u3, dv, block):
+    """The wide shape's arithmetic in plain float32: 2^24 C and dv split
+    into bf16 pieces, cast back (each product of two pieces is exact in
+    float32), per 128-column run hi = c0 d0 and lo = c2 d0 + c1 d0 + c1 d1 +
+    c0 d1 + c0 d2 each summed from zero, the run (hi + lo) 2^-24 added to its
+    chunk's sum, the chunks to the total in order."""
+    n = u3.shape[0]
+    c = [p.float() for p in BM.split_bf16x3(_c_rows(u3, block) * BM.C_SPLIT_SCALE)]
+    d = [p.float() for p in BM.split_bf16x3(dv)]
+    out = None
+    for j0 in range(0, n, block):
+        part = None
+        for r0 in range(j0, j0 + block, 128):
+            s = slice(r0, r0 + 128)
+            hi = c[0][:, s] @ d[0][s]
+            lo = c[2][:, s] @ d[0][s]
+            for a, b in ((1, 0), (1, 1), (0, 1), (0, 2)):
+                lo = lo + c[a][:, s] @ d[b][s]
+            run = (hi + lo) * (1.0 / BM.C_SPLIT_SCALE)
+            part = run if part is None else part + run
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("n,block,k", [(512, 128, 33), (1024, 256, 33), (768, 256, 130),
+                                       (1024, 128, 130), (512, 128, 256), (1024, 256, 256)])
+def test_six_product_split_against_float64(n, block, k):
+    """The kernel's scheme, emulated: no further from the float64 product
+    than twice the plain engine's distance, and one-hot V returns C bitwise
+    (subnormal elements of C among them: the points span ~4,000 km+)."""
+    rng = np.random.default_rng(n + k)
+    u3 = M._unit_vectors(rng.uniform(20, 60, n), rng.uniform(-140, -60, n), "cpu")
+    u3 = u3.to(torch.float32).contiguous()
+    sb = torch.as_tensor(np.abs(rng.normal(1.0, 0.3, n)).astype(np.float32))
+    dv = sb[:, None] * torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32))
+    got = _six_product_sweep(u3, dv, block)
+    plain = BM.b_matmat_plain(u3, dv, L_KM, block, 0, n // block)
+    ref = BM.b_matmat_reference(u3, dv, L_KM, block, 0, n // block)
+    assert float((got.double() - ref).abs().max()) <= 2.0 * float((plain.double() - ref).abs().max())
+    cols = rng.choice(n, k, replace=False)
+    onehot = torch.zeros((n, k), dtype=torch.float32)
+    onehot[cols, np.arange(k)] = 1.0
+    c_cols = BM.b_matmat_plain(u3, onehot, L_KM, block, 0, n // block)
+    tiny = torch.finfo(torch.float32).tiny
+    assert bool(((c_cols > 0) & (c_cols < tiny)).any())
+    assert torch.equal(_six_product_sweep(u3, onehot, block), c_cols)

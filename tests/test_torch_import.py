@@ -88,6 +88,7 @@ SLICE_MODULES = [
     "oisat_tpu_torch.examples.synthetic_month",
     "oisat_tpu_torch.entry",
     "oisat_tpu_torch.utils.roofline",
+    "oisat_tpu_torch.utils.sweep_ablation",
     "oisat_tpu_torch.bench",
     "chip_smoke",
 ]

@@ -344,8 +344,10 @@ def _sweep_inputs(n, k, cuda, seed=0):
     return u3, sb, v
 
 
-@pytest.mark.parametrize("n,block", [(2048, 1024), (4096, 1024), (4096, 2048), (2048, 128)])
-@pytest.mark.parametrize("k", [1, 3, 16, 130])
+@pytest.mark.parametrize("n,block,k", [
+    *((n, block, k) for k in (1, 3, 16, 130, 256)
+      for n, block in ((2048, 1024), (4096, 1024), (4096, 2048), (2048, 128))),
+    (4096, 1024, 2048), (4096, 2048, 2048)])
 def test_b_matmat_kernel_matches_plain(cuda, n, block, k):
     """One-hot V: each output is one product, so C itself must agree bitwise;
     random V: within 1e-5 of max |Y| of the plain version, no further from
