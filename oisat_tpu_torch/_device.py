@@ -1,7 +1,11 @@
 """Device resolution: every tensor-creating entry point names its device.
 
-The staged driver path also counts its host<->device copies here
-(:data:`COPIES`): every array it moves goes through :func:`h2d` / :func:`d2h`.
+Every host->device copy of the month path goes through :func:`to_device`,
+which counts its bytes (``h2d.bytes``) and the host's wait (``syncs``: a
+copy from pageable memory waits for the stream) in
+:mod:`oisat_tpu_torch.utils.profiling` when tracing is on.  The staged driver
+path also counts its host<->device copies here (:data:`COPIES`): every array
+it moves goes through :func:`h2d` / :func:`d2h`.
 """
 
 from __future__ import annotations
@@ -9,8 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "default_device", "COPIES", "positive_strides", "h2d", "d2h",
-           "size", "granule_device"]
+from oisat_tpu_torch.utils.profiling import count
+
+__all__ = ["resolve_device", "default_device", "COPIES", "positive_strides", "to_device", "h2d",
+           "d2h", "size", "granule_device"]
 
 # copies made by the staged path since the caller last reset them
 COPIES = {"h2d": 0, "d2h": 0}
@@ -23,13 +29,25 @@ def positive_strides(x) -> np.ndarray:
     return a.copy() if any(s < 0 for s in a.strides) else a
 
 
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """The host array ``x`` as a tensor on ``device`` (cast to ``dtype`` on
+    the host first, as a blocking copy casts), its bytes counted as
+    ``h2d.bytes`` and its wait as one of ``syncs``."""
+    t = torch.as_tensor(positive_strides(x))
+    if dtype is not None:
+        t = t.to(dtype)
+    count("h2d.bytes", t.nbytes)
+    count("syncs")
+    return t.to(device)
+
+
 def h2d(x, device, dtype=None) -> torch.Tensor:
     """``x`` as a tensor on ``device``: a host array is copied (and counted
     in :data:`COPIES`), a tensor already there is passed through."""
     if torch.is_tensor(x):
         return x.to(device=device, dtype=dtype) if dtype is not None else x.to(device)
     COPIES["h2d"] += 1
-    return torch.as_tensor(positive_strides(x), dtype=dtype, device=device)
+    return to_device(x, device, dtype)
 
 
 def d2h(t) -> np.ndarray:
@@ -38,6 +56,7 @@ def d2h(t) -> np.ndarray:
     if not torch.is_tensor(t):
         return np.asarray(t)
     COPIES["d2h"] += 1
+    count("syncs")
     return t.detach().cpu().numpy()
 
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from oisat_tpu_torch import datamodel
-from oisat_tpu_torch._device import positive_strides, resolve_device
+from oisat_tpu_torch._device import positive_strides, resolve_device, to_device
 from oisat_tpu_torch.parallel.analysis import (
     AnalysisInputs,
     FullMonthInputs,
@@ -33,12 +33,13 @@ __all__ = ["to_tensor", "to_numpy", "full_month_inputs", "analysis_inputs",
 
 
 def to_tensor(x, device) -> torch.Tensor:
-    """A numpy array (or array-like) as a tensor on ``device``; integer
-    arrays become int64, floating arrays keep their dtype."""
+    """A numpy array (or array-like) as a tensor on ``device`` (a counted
+    copy, :func:`~oisat_tpu_torch._device.to_device`); integer arrays become
+    int64, floating arrays keep their dtype."""
     a = positive_strides(x)
     if a.dtype.kind in "iu":
         a = a.astype(np.int64)
-    return torch.as_tensor(a, device=resolve_device(device))
+    return to_device(a, resolve_device(device))
 
 
 def to_numpy(x):

@@ -75,8 +75,7 @@ from oisat_tpu_torch.parallel.analysis import (
     mopitt_month_step,
     ssmis_month_step,
 )
-from oisat_tpu_torch.utils.profiling import stage
-from oisat_tpu_torch.utils.stages import StageClock
+from oisat_tpu_torch.utils.profiling import StageClock, count, span, stage
 
 __all__ = ["oisatgmi", "BIAS_CORRECTIONS"]
 
@@ -118,6 +117,7 @@ def _pack_month_pull(out, with_oi: bool) -> np.ndarray:
         fields += [out.oi.xb, out.oi.averaging_kernel, out.oi.increment, out.oi.error]
         scalars = [out.oi.reg_factor, *out.innovation]
     plane = _scalar_plane(scalars, fields[0].shape, fields[0].device)
+    count("syncs")
     return torch.stack([f.to(torch.float64) for f in fields] + [plane]).cpu().numpy()
 
 
@@ -570,8 +570,12 @@ class oisatgmi:
         time_ctm, time_hour = _ctm_times(ctm_data)
         cache: dict = {}
 
+        def stacked(tensors):
+            with span("assemble.stack"):
+                return torch.stack(tensors)
+
         def stack(name):
-            return torch.stack([getattr(g, name) for g in grans])
+            return stacked([getattr(g, name) for g in grans])
 
         if kind == "amf":
             items = [_amf_one(ctm_data, g, time_ctm, time_hour, device, cache)
@@ -579,9 +583,9 @@ class oisatgmi:
             return FullMonthInputs(
                 sat_pmid=stack("pressure_mid"), sat_sw=stack("scattering_weights"),
                 vcd=stack("vcd"), amf=stack("amf"), uncertainty=stack("uncertainty"),
-                tropopause=torch.stack([it[3] for it in items]),
-                ctm_pmid=torch.stack([it[1] for it in items]),
-                ctm_pc=torch.stack([it[2] for it in items])), full_month_step
+                tropopause=stacked([it[3] for it in items]),
+                ctm_pmid=stacked([it[1] for it in items]),
+                ctm_pc=stacked([it[2] for it in items])), full_month_step
 
         def daily(host_fields):
             """Each granule's prepared daily CTM slice: a list of tuples."""
@@ -595,7 +599,7 @@ class oisatgmi:
         if kind == "ssmis":
             pcw = daily(lambda day: [_water_partial_column(ctm_data, day)])
             return SsmisMonthInputs(
-                water_pc=torch.stack([p[0] for p in pcw]), vcd=stack("vcd"),
+                water_pc=stacked([p[0] for p in pcw]), vcd=stack("vcd"),
                 uncertainty=stack("uncertainty")), ssmis_month_step
 
         # opt sensors: MOPITT (VCD OI) vs GOSAT (xcol-pair OI)
@@ -603,8 +607,8 @@ class oisatgmi:
             slices = daily(lambda day: list(_time_collapsed(
                 ctm_data[day], ("pressure_mid", "gas_profile"))))
             return GosatMonthInputs(
-                ctm_pmid=torch.stack([s[0] for s in slices]),
-                ctm_profile=torch.stack([s[1] for s in slices]),
+                ctm_pmid=stacked([s[0] for s in slices]),
+                ctm_profile=stacked([s[1] for s in slices]),
                 sat_pmid=stack("pressure_mid"), aks=stack("averaging_kernels"),
                 apriori_profile=stack("apriori_profile"),
                 pressure_weight=stack("pressure_weight"), vcd=stack("vcd"),
@@ -616,9 +620,9 @@ class oisatgmi:
 
         slices = daily(mopitt_fields)
         return MopittMonthInputs(
-            ctm_pmid=torch.stack([s[0] for s in slices]),
-            ctm_profile=torch.stack([s[1] for s in slices]),
-            ctm_airpc=torch.stack([s[2] for s in slices]),
+            ctm_pmid=stacked([s[0] for s in slices]),
+            ctm_profile=stacked([s[1] for s in slices]),
+            ctm_airpc=stacked([s[2] for s in slices]),
             sat_pmid=stack("pressure_mid"), aks=stack("averaging_kernels"),
             apriori_profile=stack("apriori_profile"), aprior_col=stack("aprior_column"),
             apriori_surface=stack("apriori_surface"), vcd=stack("vcd"),
@@ -651,6 +655,7 @@ class oisatgmi:
         :class:`DailyGranules`: one device->host copy for the whole month,
         the content and counter-based names of :meth:`savedaily`."""
         os.makedirs(folder, exist_ok=True)
+        count("syncs")
         vcd, ctm, err = torch.stack([f.to(torch.float64) for f in daily]).cpu().numpy()
         latitude, longitude = (np.asarray(a) for a in self._daily_latlon())
         for (counter, g), v, c, e in zip(pairs, vcd, ctm, err):

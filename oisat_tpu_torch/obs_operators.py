@@ -37,6 +37,7 @@ from oisat_tpu_torch.ops.weights import diag_threshold
 from oisat_tpu_torch.parallel.analysis import over_granule_chunks
 from oisat_tpu_torch.regridder import _geom_key, make_upscaler
 from oisat_tpu_torch.utils.lru import LockedLRU
+from oisat_tpu_torch.utils.profiling import span
 
 __all__ = ["amf_recal", "ak_conv_mopitt", "ak_conv_gosat", "pwv_calculator"]
 
@@ -133,11 +134,14 @@ def _maybe_upscale(ctm_data, granule, fields, device):
     ``device``; mapped onto the satellite grid, in float64 and all stacked
     through one upscaler call, when the granule is flagged."""
     if not granule.ctm_upscaled_needed:
-        return [h2d(f, device) for f in fields]
-    up = _ctm_to_sat_upscaler(ctm_data, granule, device)
-    stacks = [np.asarray(f, np.float64) for f in fields]
-    stacks = [s[None] if s.ndim == 2 else s for s in stacks]
-    out = up.apply(h2d(np.concatenate(stacks), device))
+        with span("assemble.h2d"):
+            return [h2d(f, device) for f in fields]
+    with span("assemble.h2d"):
+        stacks = [np.asarray(f, np.float64) for f in fields]
+        stacks = [s[None] if s.ndim == 2 else s for s in stacks]
+        whole = h2d(np.concatenate(stacks), device)
+    with span("assemble.map"):
+        out = _ctm_to_sat_upscaler(ctm_data, granule, device).apply(whole)
     res, start = [], 0
     for f, s in zip(fields, stacks):
         r = out[start:start + s.shape[0]]
@@ -161,7 +165,9 @@ def _prepared(cache: dict, ctm_data, granule, matched, device, host_fields):
     once per distinct slice and kept in ``cache``."""
     key = _slice_key(granule, matched)
     if key not in cache:
-        cache[key] = _maybe_upscale(ctm_data, granule, host_fields(), device)
+        with span("assemble.ctm_fields"):
+            fields = host_fields()
+        cache[key] = _maybe_upscale(ctm_data, granule, fields, device)
     return cache[key]
 
 

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from oisat_tpu_torch._device import to_device
 from oisat_tpu_torch.ops.kernels.oi_scan import (
     ak_curve_sums,
     ak_curve_sums_kernel,
@@ -42,6 +43,7 @@ from oisat_tpu_torch.ops.kernels.oi_scan import (
 )
 from oisat_tpu_torch.ops.knee import kneedle_index_np
 from oisat_tpu_torch.parallel.mesh import gather, split, sum_in_order
+from oisat_tpu_torch.utils.profiling import count, span
 
 __all__ = ["OIResult", "regularization_grid", "curve_inputs", "ak_curve", "oi",
            "oi_sharded", "gather_oi", "CURVE_IMPLS"]
@@ -154,8 +156,13 @@ def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_impl: str = 
         # CTM-meaningless negative observations -> 0 (NaN preserved).
         shards.append((a, torch.where(b < 0, torch.zeros_like(b), b), c, d))
 
+    with span("oi.scalar"):
+        return _oi_shards(shards, dtype, regularization_on, curve_impl, curve_fn)
+
+
+def _oi_shards(shards, dtype, regularization_on: bool, curve_impl: str, curve_fn) -> list:
     regs_np = regularization_grid() if regularization_on else np.array([1.0])
-    regs = torch.as_tensor(regs_np, dtype=dtype, device=shards[0][0].device)
+    regs = to_device(regs_np, shards[0][0].device, dtype)
     if curve_fn is not None:
         if len(shards) != 1:
             raise ValueError("curve_fn replaces the curve of one shard")
@@ -165,6 +172,7 @@ def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_impl: str = 
                                 CURVE_IMPLS[curve_impl])
     if regularization_on:
         # one 99-float device->host pull; the knee is host numpy
+        count("syncs")
         reg_index = kneedle_index_np(regs_np, curve.cpu().numpy(), fallback=0)
     else:
         reg_index = 0
@@ -180,7 +188,7 @@ def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_impl: str = 
             averaging_kernel=ak,
             increment=increment,
             error=torch.sqrt(sb),
-            reg_index=torch.tensor(reg_index, dtype=torch.int32, device=dev),
+            reg_index=to_device(np.asarray(reg_index, np.int32), dev),
             reg_factor=reg,
             curve=curve.to(dev),
         ))

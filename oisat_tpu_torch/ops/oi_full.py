@@ -74,7 +74,7 @@ from oisat_tpu_torch.ops.oi_full_matfree import (  # the twin's names, importabl
     mean_ak_curve_slq,
     oi_full_matfree,
 )
-from oisat_tpu_torch.utils.stages import StageClock
+from oisat_tpu_torch.utils.profiling import StageClock
 
 __all__ = ["OIFullResult", "oi_full", "oi_full_dense", "oi_full_dense_scan",
            "oi_full_matfree", "mean_ak_curve_slq", "DENSE_MAX_CELLS",
@@ -93,7 +93,6 @@ TIGHT_CONDITIONING = 1e4  # (max sb sqrt(r) / min so)^2 above which the tail run
 MATFREE_BLOCK = 1024  # rows of a covariance sweep's tile on the matrix-free path
 SLQ_PROBES, SLQ_STEPS = 8, 60  # the matrix-free knee's probes and Lanczos steps
 CG_WARN_RESID = 1e-4  # relative residual above which the convergence warning may print
-_UNTIMED = StageClock(None, "cpu")
 
 
 class OIFullResult(NamedTuple):
@@ -106,7 +105,7 @@ class OIFullResult(NamedTuple):
 
 def oi_full_dense(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
                   diag_block: int = 1024, *, cov_impl: str = "auto",
-                  clock: StageClock = _UNTIMED):
+                  clock: StageClock | None = None):
     """Dense solve without the scan: 1-D float32 tensors of N finite cells on
     one device (``lat``/``lon`` in degrees).  Returns (xb, ak, increment, err).
     ``clock`` marks the stages "covariance" and "dense_solve".
@@ -115,6 +114,7 @@ def oi_full_dense(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
     ``V = L^-1 B`` is accumulated in column blocks of ``diag_block``: one
     triangular solve per block (N^3 over all blocks), never an N x N
     ``cholesky_solve``."""
+    clock = clock or StageClock(None, "cpu")
     dev = xa.device
     b = build_covariance(lat, lon, sigma_b, length_scale_km, device=dev, impl=cov_impl)
     clock.mark("covariance")
@@ -140,7 +140,7 @@ def oi_full_dense(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
 
 
 def oi_full_dense_scan(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
-                       regs, *, cov_impl: str = "auto", clock: StageClock = _UNTIMED):
+                       regs, *, cov_impl: str = "auto", clock: StageClock | None = None):
     """Full-covariance OI with the reference's regularization scan, as
     :func:`oisat_tpu.ops.oi_full.oi_full_dense_scan`: whiten by R and
     eigendecompose once,
@@ -154,6 +154,7 @@ def oi_full_dense_scan(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float
     curve), ``reg_index`` a host int.  ``clock`` marks the stages
     "covariance", "eigh", "scan_gemms" (the projections and the curve),
     "knee" (the pull and the host Kneedle) and "update"."""
+    clock = clock or StageClock(None, "cpu")
     f32 = torch.float32
     dev = xa.device
     b = build_covariance(lat, lon, sigma_b, length_scale_km, device=dev, impl=cov_impl)
@@ -353,7 +354,7 @@ def _diag_pack_from_factor(l_lower, so2_64, blk: int = 512):
 
 
 def _exact_tail_solve(sbv, sov, d64, lat, lon, length_scale_km: float, device,
-                      diag_block: int = EXACT_DIAG_BLOCK, clock: StageClock = _UNTIMED):
+                      diag_block: int = EXACT_DIAG_BLOCK, clock: StageClock | None = None):
     """The exact tail for float64 host vectors: returns (x64, pack, f64_resid,
     solver) with ``pack = (diag_ainv, q)`` (None where the host triangular
     inversion failed) as numpy and ``solver`` "direct_f64_dev" (the device
@@ -362,6 +363,7 @@ def _exact_tail_solve(sbv, sov, d64, lat, lon, length_scale_km: float, device,
     finite or its sampled residual exceeds the gate; the host solve raises
     when its factorization fails.  ``clock`` marks the stages "tail" (the
     solve and its pull) and "tail_resid" (the host residual check)."""
+    clock = clock or StageClock(None, "cpu")
     kappa = (EARTH_RADIUS_KM / float(length_scale_km)) ** 2
     u3_64 = _sphere_points(lat, lon)
     so2 = sov ** 2
@@ -596,7 +598,7 @@ def slq_knee(pv: Padded, length_scale_km: float, device, block: int = MATFREE_BL
 
 
 def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
-                   clock: StageClock = _UNTIMED, block: int = MATFREE_BLOCK, mesh=None,
+                   clock: StageClock | None = None, block: int = MATFREE_BLOCK, mesh=None,
                    cov_impl: str = "auto"):
     """The matrix-free branch of :func:`oi_full`, as the twin's
     ``_oi_full_large``: the compacted cells padded to a ``block`` multiple;
@@ -607,6 +609,7 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
     converge and its field-error bound ``resid_abs`` is not well under
     ``stat_norm``.  Returns (xb, ak, increment, err, info), compacted, in the
     normalised units."""
+    clock = clock or StageClock(None, "cpu")
     n = cp.idx.size
     pv = pad_for_matfree(cp, block)
     sb_v = pv.sb

@@ -63,7 +63,7 @@ from oisat_tpu_torch.ops.kernels.b_matmat import B_MATMAT_IMPLS
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, radians_f32
 from oisat_tpu_torch.parallel.mesh import sum_in_order
 from oisat_tpu_torch.utils.lru import LockedLRU
-from oisat_tpu_torch.utils.stages import StageClock
+from oisat_tpu_torch.utils.profiling import StageClock
 
 __all__ = ["oi_full_matfree", "mean_ak_curve_slq", "NYSTROM_MIN_CELLS", "REFINE_MAX_CELLS"]
 
@@ -76,7 +76,6 @@ _BALL_CHUNK = 4096  # neighbour-list chunk of the host colouring
 JACOBI_STALL = 50  # CG iterations without a 10% improvement before a column freezes
 NYSTROM_STALL = 200
 F32_EPS = 1.2e-7  # the twin's float32 epsilon in the Nystrom shift floor
-_UNTIMED = StageClock(None, "cpu")
 _f32 = torch.float32
 
 
@@ -546,7 +545,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
                     probe_sep_factor: float = 4.0, max_colors: int = 192,
                     cluster_radius_factor: float = 0.25, valid=None, precond: str = "auto",
                     nystrom_k: int = None, refine="auto", *, omega=None, device="cuda",
-                    clock: StageClock = _UNTIMED, mesh=None, cov_impl: str = "auto"):
+                    clock: StageClock | None = None, mesh=None, cov_impl: str = "auto"):
     """Full-covariance OI without forming B, as
     :func:`oisat_tpu.ops.oi_full.oi_full_matfree`: 1-D finite host inputs of
     n cells (padded here to a ``block`` multiple with sigma_b = 0 /
@@ -568,6 +567,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
     marks "nystrom", "pcg", "refine", "tail", "tail_resid", "diag",
     "coloring" and "probe" as the branch reaches them.  ``mesh`` shards
     every sweep and ``cov_impl`` picks its engine (see :func:`_b_matmat`)."""
+    clock = clock or StageClock(None, "cpu")
     from oisat_tpu_torch.ops import oi_full as dense
 
     mesh = _drop_single(mesh)

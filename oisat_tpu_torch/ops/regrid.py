@@ -20,6 +20,8 @@ import math
 import numpy as np
 import torch
 
+from oisat_tpu_torch._device import to_device
+
 __all__ = ["apply_plan_arrays", "apply_plan", "boxfilter_same_symm", "box_halo_rows",
            "boxfilter_rows_padded"]
 
@@ -49,8 +51,7 @@ def apply_plan(plan, z: torch.Tensor) -> torch.Tensor:
 
 def _symmetric_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
     """Source rows of numpy's ``mode='symmetric'`` padding (edge repeated)."""
-    return torch.as_tensor(np.pad(np.arange(n), (lo, hi), mode="symmetric"),
-                           device=device)
+    return to_device(np.pad(np.arange(n), (lo, hi), mode="symmetric"), device)
 
 
 def boxfilter_same_symm(z: torch.Tensor, ky: int, kx: int,

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch._device import resolve_device, to_device
 from oisat_tpu_torch.convert import plan_to_torch
 from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt, satellite_ssmis
 from oisat_tpu_torch.ops.regrid import (
@@ -54,6 +54,7 @@ from oisat_tpu_torch.ops.weights import (
     grid_spacing,
 )
 from oisat_tpu_torch.utils.lru import LockedLRU
+from oisat_tpu_torch.utils.profiling import count, span
 
 __all__ = ["Upscaler", "make_upscaler", "regrid_granule", "regrid_ssmis_granule",
            "regrid_mesh", "set_regrid_mesh"]
@@ -283,7 +284,7 @@ def _regrid_device_sharded(batch, err, idx, w, mask, up_idx, up_w, up_mask,
     for dev, rows in zip(devices, np.array_split(np.arange(fh), len(devices))):
         if rows.size == 0:
             continue
-        src = torch.as_tensor(halo[rows[0]:rows[-1] + 1 + pad], device=idx.device)
+        src = to_device(halo[rows[0]:rows[-1] + 1 + pad], idx.device)
         sel = [t[src].to(dev) for t in (idx3, w3, mask2)]
         plan = (sel[0].reshape(-1, k), sel[1].reshape(-1, k), sel[2].reshape(-1))
         shape = (src.numel(), fw)
@@ -322,9 +323,10 @@ def _finish_device_fields(gridded, err_gridded, layout, hw):
     return out
 
 
-def _run_regrid(plan, upsc, batch, err, device, square_err: bool):
-    """One granule's (F, Npix) value batch and (1, Npix) error row through
-    the device pipeline; returns (values, errors, (H, W) of the result)."""
+def _run_regrid(plan, upsc, batch, err, square_err: bool):
+    """One granule's (F, Npix) value batch and (1, Npix) error row, tensors
+    on the plan's device, through the device pipeline; returns (values,
+    errors, (H, W) of the result)."""
     if upsc.needed:
         up = (None, None, None)
         hw = tuple(plan.out_shape)
@@ -333,10 +335,8 @@ def _run_regrid(plan, upsc, batch, err, device, square_err: bool):
         hw = tuple(upsc.out_lat.shape)
     mesh = _regrid_mesh_default()
     regrid_fn = _regrid_device_impl if mesh is None else _sharded_regrid_fn(mesh)
-    out, out_err = regrid_fn(
-        torch.as_tensor(batch, device=device), torch.as_tensor(err, device=device),
-        plan.idx, plan.w, plan.mask, *up, tuple(plan.out_shape),
-        upsc.ky, upsc.kx, upsc.needed, square_err)
+    out, out_err = regrid_fn(batch, err, plan.idx, plan.w, plan.mask, *up,
+                             tuple(plan.out_shape), upsc.ky, upsc.kx, upsc.needed, square_err)
     return out, out_err, hw
 
 
@@ -361,63 +361,36 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
         raise TypeError(f"unsupported granule type {type(sat_data)!r}: regrid_granule "
                         "takes the port's satellite_amf and satellite_opt "
                         "(satellite_ssmis: regrid_ssmis_granule)")
-    dev = resolve_device(device)
-    threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
-    lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
-    plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
-                         lons_fine, lats_fine, grid_size, method=interpolator_type,
-                         far_factor=2.0, fast=fast_swath, device=dev)
-    if plan is None:
+    with span("regrid"):
+        return _regrid_granule(is_opt, interpolator_type, grid_size, sat_data, ctm_lon2d,
+                               ctm_lat2d, resolve_device(device), flag_thresh, fast_swath,
+                               _host_dtype(dtype))
+
+
+def _regrid_granule(is_opt: bool, interpolator_type: int, grid_size: float, sat_data,
+                    ctm_lon2d, ctm_lat2d, dev, flag_thresh: float, fast_swath: bool,
+                    host_dtype):
+    plans = _regrid_plans(sat_data, ctm_lon2d, ctm_lat2d, grid_size, interpolator_type, 4,
+                          2.0, fast_swath, dev)
+    if plans is None:
         return None
-    upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
-                         threshold_ctm, dev, method=4, far_factor=2.0, fast=fast_swath)
-    host_dtype = _host_dtype(dtype)
-    mask = _quality_mask(sat_data.quality_flag, flag_thresh, host_dtype)
-
-    names: list = []
-    rows: list = []
-
-    def add2d(name, arr):
-        names.append(name)
-        rows.append(np.squeeze(np.asarray(arr)))
-
-    def add3d(name, arr):
-        a = np.asarray(arr)
-        for z in range(a.shape[0]):
-            names.append(f"{name}:{z}")
-            rows.append(np.squeeze(a[z]))
-
-    add2d("vcd", sat_data.vcd)
-    if is_amf:
-        add2d("amf", sat_data.amf)
-    if np.size(sat_data.tropopause) != 1:
-        add2d("tropopause", sat_data.tropopause)
-    has_sw = is_amf and np.size(sat_data.scattering_weights) != 1
-    if has_sw:
-        add3d("scattering_weights", sat_data.scattering_weights)
-        add3d("pressure_mid", sat_data.pressure_mid)
-    if is_opt:
-        gosat = sat_data.sensor == "GOSAT"
-        # all-zero placeholders (np.zeros((1,)) of the readers) stay out
-        for name in ("aprior_column", "surface_pressure", "apriori_surface"):
-            if np.asarray(getattr(sat_data, name)).any():
-                add2d(name, getattr(sat_data, name))
-        add2d("x_col", sat_data.x_col)
-        add3d("averaging_kernels", sat_data.averaging_kernels)
-        if gosat:
-            add3d("pressure_weight", sat_data.pressure_weight)
-        add3d("pressure_mid", sat_data.pressure_mid)
-        add3d("apriori_profile", sat_data.apriori_profile)
-
-    # cast first, then the QA multiply (mask is exactly 1.0 or NaN)
-    batch = np.stack([(np.asarray(r, host_dtype) * mask).ravel() for r in rows])
-    err = (np.asarray(np.squeeze(sat_data.uncertainty), host_dtype) * mask).ravel()[None]
-    out, out_err, hw = _run_regrid(plan, upsc, batch, err, dev, square_err=True)
-    d = _finish_device_fields(out, out_err, tuple(names), hw)
+    plan, upsc = plans
+    with span("regrid.stack"):
+        mask = _quality_mask(sat_data.quality_flag, flag_thresh, host_dtype)
+        names, rows = _batch_rows(sat_data, is_opt)
+        # cast first, then the QA multiply (mask is exactly 1.0 or NaN)
+        batch = np.stack([(np.asarray(r, host_dtype) * mask).ravel() for r in rows])
+        err = (np.asarray(np.squeeze(sat_data.uncertainty), host_dtype) * mask).ravel()[None]
+    batch, err = _to_device_pair(batch, err, dev)
+    with span("regrid.apply"):
+        out, out_err, hw = _run_regrid(plan, upsc, batch, err, square_err=True)
+        d = _finish_device_fields(out, out_err, tuple(names), hw)
 
     vcd = d["vcd"]
-    if bool(torch.isnan(vcd).all()):
-        return None  # granule misses the analysis domain
+    with span("regrid.domain_check"):
+        count("syncs")
+        if bool(torch.isnan(vcd).all()):
+            return None  # granule misses the analysis domain
     common = dict(
         vcd=vcd, time=sat_data.time, tropopause=d.get("tropopause", np.empty((1,))),
         latitude_center=upsc.out_lat, longitude_center=upsc.out_lon,
@@ -432,16 +405,79 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
             surface_pressure=d.get("surface_pressure", np.zeros((1,))),
             apriori_surface=d.get("apriori_surface", np.zeros((1,))),
             x_col=d["x_col"],
-            pressure_weight=d["pressure_weight"] if gosat else np.empty((1,)),
+            pressure_weight=(d["pressure_weight"] if sat_data.sensor == "GOSAT"
+                             else np.empty((1,))),
             sensor=sat_data.sensor, **common)
     nz = np.shape(sat_data.pressure_mid)[0] if np.size(sat_data.pressure_mid) > 1 else 0
-    if has_sw:
+    if "scattering_weights" in d:
         sw, pmid = d["scattering_weights"], d["pressure_mid"]
     else:
         sw = np.empty((1,))
         pmid = torch.zeros((nz,) + tuple(hw), dtype=vcd.dtype, device=dev)
     return satellite_amf(amf=d["amf"], pressure_mid=pmid, scattering_weights=sw,
                          old_amf=[], new_amf=[], **common)
+
+
+def _regrid_plans(sat_data, ctm_lon2d, ctm_lat2d, grid_size, method: int,
+                  up_method: int, far_factor: float, fast: bool, dev):
+    """(granule plan, upscaler) of one granule on ``dev``, or None for a
+    granule that cannot be triangulated: the geometry keys, the cache
+    lookups, the builds on a miss and the plans' copies to the device."""
+    with span("regrid.plan"):
+        threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
+        lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
+        plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
+                             lons_fine, lats_fine, grid_size, method=method,
+                             far_factor=far_factor, fast=fast, device=dev)
+        if plan is None:
+            return None
+        return plan, make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
+                                   threshold_ctm, dev, method=up_method,
+                                   far_factor=far_factor, fast=fast)
+
+
+def _batch_rows(sat_data, is_opt: bool):
+    """(names, rows) of the value batch: the 2-D fields, then every level of
+    the 3-D fields as ``"name:z"`` rows (host arrays, not yet cast)."""
+    names: list = []
+    rows: list = []
+
+    def add2d(name, arr):
+        names.append(name)
+        rows.append(np.squeeze(np.asarray(arr)))
+
+    def add3d(name, arr):
+        a = np.asarray(arr)
+        for z in range(a.shape[0]):
+            names.append(f"{name}:{z}")
+            rows.append(np.squeeze(a[z]))
+
+    add2d("vcd", sat_data.vcd)
+    if not is_opt:
+        add2d("amf", sat_data.amf)
+    if np.size(sat_data.tropopause) != 1:
+        add2d("tropopause", sat_data.tropopause)
+    if not is_opt and np.size(sat_data.scattering_weights) != 1:
+        add3d("scattering_weights", sat_data.scattering_weights)
+        add3d("pressure_mid", sat_data.pressure_mid)
+    if is_opt:
+        # all-zero placeholders (np.zeros((1,)) of the readers) stay out
+        for name in ("aprior_column", "surface_pressure", "apriori_surface"):
+            if np.asarray(getattr(sat_data, name)).any():
+                add2d(name, getattr(sat_data, name))
+        add2d("x_col", sat_data.x_col)
+        add3d("averaging_kernels", sat_data.averaging_kernels)
+        if sat_data.sensor == "GOSAT":
+            add3d("pressure_weight", sat_data.pressure_weight)
+        add3d("pressure_mid", sat_data.pressure_mid)
+        add3d("apriori_profile", sat_data.apriori_profile)
+    return names, rows
+
+
+def _to_device_pair(batch, err, dev):
+    """The value batch and the error row onto ``dev``."""
+    with span("regrid.h2d"):
+        return to_device(batch, dev), to_device(err, dev)
 
 
 def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
@@ -462,23 +498,24 @@ def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
     if not isinstance(sat_data, satellite_ssmis):
         raise TypeError(f"unsupported granule type {type(sat_data)!r}: "
                         "regrid_ssmis_granule takes the port's satellite_ssmis")
-    dev = resolve_device(device)
-    threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
-    lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
-    plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
-                         lons_fine, lats_fine, grid_size, method=1, far_factor=1.0,
-                         fast=fast_swath, device=dev)
-    if plan is None:
-        return None
-    upsc = make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
-                         threshold_ctm, dev, method=1, far_factor=1.0, fast=fast_swath)
-    host_dtype = _host_dtype(dtype)
-    out, out_err, hw = _run_regrid(
-        plan, upsc, np.asarray(sat_data.vcd, host_dtype).ravel()[None],
-        np.asarray(sat_data.uncertainty, host_dtype).ravel()[None], dev, square_err=False)
+    with span("regrid"):
+        dev = resolve_device(device)
+        plans = _regrid_plans(sat_data, ctm_lon2d, ctm_lat2d, grid_size, 1, 1, 1.0,
+                              fast_swath, dev)
+        if plans is None:
+            return None
+        plan, upsc = plans
+        host_dtype = _host_dtype(dtype)
+        with span("regrid.stack"):
+            batch = np.asarray(sat_data.vcd, host_dtype).ravel()[None]
+            err = np.asarray(sat_data.uncertainty, host_dtype).ravel()[None]
+        batch, err = _to_device_pair(batch, err, dev)
+        with span("regrid.apply"):
+            out, out_err, hw = _run_regrid(plan, upsc, batch, err, square_err=False)
+            vcd = out[0].reshape(hw)
+            # the raw value through the squared kernel, no sqrt
+            uncertainty = out_err[0].reshape(hw)
     return satellite_ssmis(
-        vcd=out[0].reshape(hw),
-        # the raw value through the squared kernel, no sqrt
-        uncertainty=out_err[0].reshape(hw), time=sat_data.time,
+        vcd=vcd, uncertainty=uncertainty, time=sat_data.time,
         latitude_center=upsc.out_lat, longitude_center=upsc.out_lon,
         ctm_upscaled_needed=upsc.needed, ctm_vcd=[], sensor="SSMIS")

@@ -36,7 +36,6 @@ SLICE_MODULES = [
     "oisat_tpu_torch.native",
     "oisat_tpu_torch.utils",
     "oisat_tpu_torch.utils.lru",
-    "oisat_tpu_torch.utils.stages",
     "oisat_tpu_torch.ops.knee",
     "oisat_tpu_torch.ops.oi",
     "oisat_tpu_torch.ops.averaging",

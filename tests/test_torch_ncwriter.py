@@ -288,3 +288,24 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 100
     assert any("mm" in e.key or "matmul" in e.key for e in prof.key_averages())
+
+
+def test_device_trace_holds_the_programs_spans(tmp_path):
+    from benchmark import generators, program
+    from benchmark.tests.tiny import tiny_cell
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    cfg = tiny_cell("omi_no2.scalar_month").config
+    raw, _, lon2d, lat2d = generators.make_month(cfg, 3)
+    reg = cfg["regrid"]
+    profiling.take()
+    with profiling.device_trace(str(tmp_path / "trace")):
+        out = regrid_granule(reg["interpolator_type"], reg["grid_size"],
+                             program.to_granule(raw[0]), lon2d, lat2d, "cpu",
+                             flag_thresh=reg["flag_thresh"])
+    assert out is not None
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"regrid", "regrid.plan", "regrid.h2d", "regrid.apply"} <= events
+    spans, counters = profiling.take()
+    assert "regrid.plan" in [n for n, _, _ in spans] and counters["syncs"] > 0
