@@ -31,9 +31,16 @@ Phases (any failure raises, exit code != 0):
    regridded by the port (linear, 0.25 deg fine grid, 2 x 2 box filter)
    onto the global MERRA2-GMI grid (0.5 x 0.625 deg, 361 x 576 = 207,936
    cells), a 72-level CTM with 8 3-hourly snapshots.  The kernel's launch
-   count over the regrid + month must be > 0; the same month with the plain
-   curve engine must give the identical ``reg_index`` and fields within
-   rtol 1e-5.
+   count over the regrid + month must be > 0, and every orbit's plan must
+   be built on the card by the swath plan kernel (``csrc/swath_plan.cu``);
+   the same month with the plain curve engine must give the identical
+   ``reg_index`` and fields within rtol 1e-5.
+4b. The swath plan kernel on one of phase 4's orbits against the 0.25 deg
+   fine grid (1,037,519 targets), called as the regrid calls it: its plan
+   bitwise equal to the host builder's (``plan_to_torch(build_plan_structured
+   (...))``, its plain version), its kernels' device time (torch.profiler)
+   beside the bound (the plan written and the coordinates read over the HBM
+   rate), the call end to end and the host build with its copy (host clock).
 5. Timings with CUDA events (kernel vs plain, ``oi()``, the month step and
    its AMF-recalculation part) and the host clock (regrid s/orbit, the
    driver's month, its host assembly).
@@ -47,11 +54,12 @@ Phases (any failure raises, exit code != 0):
 7. The full-covariance month (``oi_method="full"``, L = 300 km): 60
    OMI-shaped orbits crossing the CONUS window of the MERRA2-GMI grid
    (57 x 99 = 5,643 cells, ``entry.synthetic_regional_month``), a 72-level
-   8-snapshot CTM, regridded by the native builder, then
+   8-snapshot CTM, regridded with plans built on the card, then
    ``analyze_month_fused``: the dense eigen scan with the covariance kernel
    and the float64 exact tail on the card.  Checks: covariance launches
    > 0, solver "dense+direct_f64_dev", the sampled float64 residual under
-   the gate, the native builder in use, a finite posterior wherever prior
+   the gate, every orbit's plan built by the swath plan kernel, a finite
+   posterior wherever prior
    and observation are, the kernel bitwise equal to the plain version and
    the plain B bitwise symmetric on the month's own compacted cells, and
    the same month with the plain covariance engine giving the identical
@@ -247,7 +255,7 @@ from oisat_tpu_torch.utils.roofline import (  # the card's ceilings, bounds, tim
 N_ORBITS = 60
 HEADLINE = (1440, 2880)
 FACTORS_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-KERNELS = ("ak_curve", "covariance", "b_matmat")
+KERNELS = ("ak_curve", "covariance", "b_matmat", "swath_plan")
 COV_SIZES = (6144, 10240)  # the dense scan's and the dense solve's largest B
 COV_EDGE = (1, 63, 65, 1000, 6143)  # N = 1 and N off the 64-cell tile
 COV_RTOL = 2e-4  # + atol 1e-6 * max sigma^2: the CPU tests' bounds
@@ -486,8 +494,9 @@ def full_month(reader, dev, **kw):
     return obj, out, time.perf_counter() - t0, stage_ms
 
 
-def phase_full_month(dev, cov, oi_scan, native):
+def phase_full_month(dev, cov, oi_scan):
     from oisat_tpu_torch.entry import synthetic_regional_month
+    from oisat_tpu_torch.ops.kernels import swath_plan
     from oisat_tpu_torch.ops.oi import regularization_grid
     from oisat_tpu_torch.ops.oi_full import DEVICE_EXACT_RESID_GATE, compact
     from oisat_tpu_torch.regridder import regrid_granule
@@ -504,11 +513,13 @@ def phase_full_month(dev, cov, oi_scan, native):
     base_gb = torch.cuda.memory_allocated() / 1e9
     cov.build_covariance_kernel.launches = 0
     oi_scan.ak_curve_sums_kernel.launches = 0
+    swath_plan.build_plan_structured_kernel.launches = 0
     # ---- the main path of this slice: regrid every orbit, the full month ----
     t0 = time.perf_counter()
     grans = [regrid_granule(1, 0.25, o, lon2d, lat2d, dev, flag_thresh=0.5) for o in orbits]
     torch.cuda.synchronize()
     regrid_s = time.perf_counter() - t0
+    plan_launches = swath_plan.build_plan_structured_kernel.launches
     reader = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
     obj, out, month_s, stage_ms = full_month(reader, dev)
     cov_launches = cov.build_covariance_kernel.launches
@@ -517,7 +528,8 @@ def phase_full_month(dev, cov, oi_scan, native):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(g is not None for g in grans), "an orbit missed the CONUS window")
     check(cov_launches > 0, "the full-covariance month never launched the covariance kernel")
-    check(native.available(), "the regrid did not use the native swath builder")
+    check(plan_launches >= len(orbits), f"the swath plan kernel built {plan_launches} plans "
+          f"for {len(orbits)} orbits")
     diag = obj.oi_diagnostics
     check(diag.get("solver") == "dense+direct_f64_dev",
           f"the float64 exact tail did not run: {diag}")
@@ -575,9 +587,72 @@ def phase_full_month(dev, cov, oi_scan, native):
     check(again.oi_diagnostics["reg"] == diag["reg"], "a second kernel-engine run "
           f"picked factor {again.oi_diagnostics['reg']} instead of {diag['reg']}")
     log_stages("full month, kernel engine again (warm)", again_ms, again_s)
-    return dict(launches=cov_launches, err=cov_err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bms, bound_by=by, cells=n, reader=reader, direct=obj,
+    return dict(launches=cov_launches, plan_launches=plan_launches, err=cov_err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bms, bound_by=by, cells=n, reader=reader, direct=obj,
                 direct_s=again_s, orbits=orbits, ctm=ctm, grid=(lon2d, lat2d))
+
+
+def phase_swath_plan(dev, orbit, lon2d, lat2d) -> dict:
+    """Phase 4b: the swath plan kernel on one orbit against the 0.25 deg fine
+    grid, as the regrid calls it (method 1, far factor 2, the fine grid on
+    the card), bitwise equal to the host builder's plan, and its times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from oisat_tpu_torch.convert import plan_to_torch
+    from oisat_tpu_torch.ops.kernels import swath_plan
+    from oisat_tpu_torch.ops.weights import build_plan_structured, fine_grid
+
+    log("== phase 4b: the swath plan kernel vs the host builder on one orbit")
+    flon, flat = fine_grid(lon2d, lat2d, 0.25)
+    lon, lat = orbit.longitude_center, orbit.latitude_center
+    kw = dict(threshold=0.25, far_factor=2.0, method=1)
+    targets = swath_plan.targets_on(flon, flat, dev)
+    launches = swath_plan.build_plan_structured_kernel.launches
+
+    def kernel():
+        return swath_plan.build_plan_structured_kernel(lon, lat, flon, flat, device=dev,
+                                                       targets=targets, **kw)
+
+    def plain():
+        return plan_to_torch(build_plan_structured(lon, lat, flon, flat, **kw), dev)
+
+    def wall_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(got is not None and want is not None, "no swath plan for phase 4's orbit")
+    check(torch.equal(got.idx, want.idx), "the kernel's plan idx differs from the host's")
+    check(torch.equal(got.w.view(torch.int64), want.w.view(torch.int64)),
+          "the kernel's plan weights differ bitwise from the host's")
+    check(torch.equal(got.mask, want.mask), "the kernel's plan mask differs from the host's")
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    names = ("hash_items", "scan_starts", "sort_bins", "locate_targets")
+    device_us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                    if any(n in e.key for n in names))
+    check(device_us > 0, "torch.profiler saw no device time of the swath plan kernels")
+    ms = device_us / reps / 1e3
+    call_ms, plain_ms = wall_ms(kernel, reps), wall_ms(plain, 5)
+    nt, npix = flon.size, lon.size
+    # idx, w and mask written; the targets and the swath read
+    bms, by = bound_ms(nt * (3 * 8 + 3 * 8 + 1) + 16 * (nt + npix), 0.0, torch.float64)
+    log(f"swath plan, {npix} px onto {nt} targets: bitwise the host builder's plan; "
+        f"kernels {ms:.4f} ms (device), bound {bms:.4f} ms ({by}), kernel at "
+        f"{bms / ms:.1%} of it; the call end to end {call_ms:.3f} ms, the host build "
+        f"and its copy {plain_ms:.3f} ms (host clock)")
+    return dict(launches=swath_plan.build_plan_structured_kernel.launches - launches, ms=ms,
+                plain_ms=plain_ms, call_ms=call_ms, bound_ms=bms, bound_by=by, targets=nt,
+                pixels=npix)
 
 
 def implied_factor(obj, sensor: str, grid) -> int:
@@ -2283,6 +2358,7 @@ def main() -> int:
     from oisat_tpu_torch.ops.kernels import b_matmat as sweep
     from oisat_tpu_torch.ops.kernels import covariance as cov
     from oisat_tpu_torch.ops.kernels import oi_scan
+    from oisat_tpu_torch.ops.kernels import swath_plan
     from oisat_tpu_torch.ops.kernels._build import build_log, load_library
     from oisat_tpu_torch.ops.knee import kneedle_index_np
     from oisat_tpu_torch.ops.oi import curve_inputs, oi, regularization_grid
@@ -2335,6 +2411,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     oi_scan.ak_curve_sums_kernel.launches = 0
+    swath_plan.build_plan_structured_kernel.launches = 0
     # ---- the main path: regrid every orbit, then the fused month ----
     per_orbit = []
     grans = []
@@ -2344,6 +2421,7 @@ def main() -> int:
         torch.cuda.synchronize()
         per_orbit.append(time.perf_counter() - t0)
         grans.append(g)
+    plan_launches = swath_plan.build_plan_structured_kernel.launches
     obj = oisatgmi()
     obj.reader_obj = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
     t0 = time.perf_counter()
@@ -2357,6 +2435,8 @@ def main() -> int:
     check(n_ok == N_ORBITS, f"only {n_ok} of {N_ORBITS} orbits regridded")
     check(launches == 1, f"the month launched the ak_curve kernel {launches} times for "
           "1 scalar OI pass")
+    check(plan_launches >= N_ORBITS, f"the swath plan kernel built {plan_launches} plans for "
+          f"{N_ORBITS} orbits")
     regrid_steady = float(np.mean(per_orbit[1:]))
     log(f"regrid: first orbit {per_orbit[0]:.3f} s (fine grid + upscaler build), "
         f"then {regrid_steady:.4f} s/orbit (mean of {N_ORBITS - 1})")
@@ -2394,6 +2474,7 @@ def main() -> int:
                                    atol=0, equal_nan=True, err_msg=name)
     log("month: plain curve engine gives the identical reg_index and fields (rtol 1e-5)")
     del ref_out, out
+    plan_check = phase_swath_plan(dev, orbits[0], lon2d, lat2d)
 
     log("== phase 5: timings")
     t0 = time.perf_counter()
@@ -2474,7 +2555,7 @@ def main() -> int:
     del grans, obj, ref
     torch.cuda.empty_cache()
     cov_times = phase_covariance(dev, cov)
-    full = phase_full_month(dev, cov, oi_scan, native)
+    full = phase_full_month(dev, cov, oi_scan)
     mopitt, mopitt_launches, mopitt_shape, mopitt_job = phase_mopitt(dev, oi_scan, regs_np)
     by_path = {"omi_fused_month": launches, "mopitt_staged_and_fused": mopitt_launches}
     by_path.update(job_paths)
@@ -2578,6 +2659,27 @@ def main() -> int:
         "dtype": "float32",
         "other_shapes": [case_entry(c) for c in sweep_cases[1:]],
     }
+    plan_paths = {"omi_fused_month": plan_launches, "phase_4b": plan_check["launches"],
+                  "omi_full_month": full["plan_launches"]}
+    log(f"swath_plan launches on the driven paths: {plan_paths}")
+    plan_entry = {
+        "name": "swath_plan",
+        "route": "cuda",
+        "source": "oisat_tpu_torch/csrc/swath_plan.cu",
+        "replaces": "oisat_tpu/native.py:70",  # host C++ there, not a pallas_call
+        "launches": sum(plan_paths.values()),
+        "launches_by_path": plan_paths,
+        "max_abs_err": 0.0,  # checked bitwise against the host builder
+        "ms": plan_check["ms"],
+        "plain_ms": plan_check["plain_ms"],
+        "call_ms": plan_check["call_ms"],
+        "bound_ms": plan_check["bound_ms"],
+        "bound_by": plan_check["bound_by"],
+        "library_ms": None,  # no PyTorch call builds the plan
+        "targets": plan_check["targets"],
+        "pixels": plan_check["pixels"],
+        "dtype": "float64",
+    }
     log(f"nvidia-smi: {smi_line()}")
     print(json.dumps({"kernels": [curve_entry, {
         "name": "covariance",
@@ -2597,7 +2699,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call builds B
         "cells": full["cells"],
         "dtype": "float32",
-    }, sharded_entry, sweep_entry]}), flush=True)
+    }, sharded_entry, sweep_entry, plan_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

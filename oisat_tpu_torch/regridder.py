@@ -5,10 +5,13 @@ oisatgmi/interpolator.py:100-291, interpolator_ssmis.py:96-168) for
 ``satellite_amf`` and ``satellite_opt`` granules (:func:`regrid_granule`) and
 ``satellite_ssmis`` granules (:func:`regrid_ssmis_granule`):
 
-  host   build the SparsePlan pixels -> fine grid for the granule's geometry
-         and the Upscaler fine grid -> CTM grid (the port's copies
-         :mod:`oisat_tpu_torch.ops.weights` and :mod:`oisat_tpu_torch.native`:
-         numpy/scipy/C++);
+  plan   build the SparsePlan pixels -> fine grid for the granule's geometry
+         and the Upscaler fine grid -> CTM grid: a structured swath's plan on
+         a CUDA device by the kernel of
+         :mod:`oisat_tpu_torch.ops.kernels.swath_plan` (reading the fine
+         grid from its one copy on the device), every other plan
+         on the host (the port's copies :mod:`oisat_tpu_torch.ops.weights`
+         and :mod:`oisat_tpu_torch.native`: numpy/scipy/C++) and copied;
   device stack every 2-D field and every level of every 3-D field into one
          (F, Npix) batch -> gather + weighted sum -> box filter -> nearest
          map onto the CTM grid, and the uncertainty through the same path
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Optional
 
 import numpy as np
@@ -38,6 +42,7 @@ import torch
 from oisat_tpu_torch._device import resolve_device, to_device
 from oisat_tpu_torch.convert import plan_to_torch
 from oisat_tpu_torch.datamodel import satellite_amf, satellite_opt, satellite_ssmis
+from oisat_tpu_torch.ops.kernels.swath_plan import build_plan_structured_kernel, targets_on
 from oisat_tpu_torch.ops.regrid import (
     apply_plan,
     apply_plan_arrays,
@@ -107,11 +112,29 @@ _upscaler_cache = LockedLRU(16)
 _plan_cache = LockedLRU(4)
 
 
-def _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size):
+class _FineGrid:
+    """A fine grid's host coordinates (``lon``, ``lat``) and, on each device
+    a swath plan was built on, :func:`targets_on` of them: the swath plan
+    kernel reads that copy in place of copying the grid with every orbit."""
+
+    def __init__(self, lon, lat):
+        self.lon, self.lat = lon, lat
+        self._on: dict = {}
+        self._lock = threading.Lock()
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        with self._lock:
+            t = self._on.get(device)
+            if t is None:
+                t = self._on[device] = targets_on(self.lon, self.lat, device)
+            return t
+
+
+def _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size) -> _FineGrid:
     key = (_geom_key(ctm_lon2d, ctm_lat2d), float(grid_size))
     hit = _fine_grid_cache.get(key)
     if hit is None:
-        hit = fine_grid(ctm_lon2d, ctm_lat2d, grid_size)
+        hit = _FineGrid(*fine_grid(ctm_lon2d, ctm_lat2d, grid_size))
         _fine_grid_cache.put(key, hit)
     return hit
 
@@ -140,23 +163,41 @@ def make_upscaler(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, grid_size: float,
     kx = max(int(np.floor(tgt_dlon / grid_size)), 1)
     ky = max(int(np.floor(tgt_dlat / grid_size)), 1)
     plan = _build_plan(src_lon2d, src_lat2d, tgt_lon2d, tgt_lat2d, threshold,
-                       method, far_factor, fast)
+                       method, far_factor, fast, dev)
     if plan is None:
         raise RuntimeError("upscaler weight build failed for a regular grid "
                            "geometry (degenerate fine/CTM grid?)")
-    up = Upscaler(False, ky, kx, plan_to_torch(plan, dev), tgt_lon2d, tgt_lat2d)
+    up = Upscaler(False, ky, kx, plan, tgt_lon2d, tgt_lat2d)
     _upscaler_cache.put(key, up)
     return up
 
 
 def _build_plan(src_lon, src_lat, tgt_lon2d, tgt_lat2d, threshold: float,
-                method: int, far_factor: float, fast: bool):
-    """The source-pixel -> target-grid SparsePlan (host numpy) for one
-    geometry, or None when the swath cannot be triangulated (the reference
-    skips such granules, interpolator.py:151-155).  ``fast`` tries the native
-    structured builder first (2-D pixel grids, methods 1/2/4)."""
+                method: int, far_factor: float, fast: bool, device: torch.device,
+                targets=None):
+    """The source-pixel -> target-grid SparsePlan for one geometry with its
+    ``idx`` / ``w`` / ``mask`` on ``device``, or None when the swath cannot
+    be triangulated (the reference skips such granules,
+    interpolator.py:151-155).  ``fast`` takes the structured builder first
+    (2-D pixel grids, methods 1/2/4): on a CUDA device its kernel builds the
+    plan there, bitwise the host builder's, and nothing of it crosses PCIe;
+    otherwise the native host builder.  Either falls back to the scipy
+    builders, and a host plan is copied to ``device``.  ``targets``, where
+    given, gives the targets on a device (:meth:`_FineGrid.on`), which the
+    kernel reads in place of a copy.  Each build counts as
+    ``regrid.plan_builds_device`` or ``regrid.plan_builds_host``."""
+    structured = fast and method in (1, 2, 4) and np.ndim(src_lon) == 2
+    if structured and device.type == "cuda":
+        plan = build_plan_structured_kernel(src_lon, src_lat, tgt_lon2d, tgt_lat2d,
+                                            threshold=threshold, far_factor=far_factor,
+                                            method=method, device=device,
+                                            targets=None if targets is None else targets(device))
+        if plan is not None:
+            count("regrid.plan_builds_device")
+            return plan
+    count("regrid.plan_builds_host")
     plan = None
-    if fast and method in (1, 2, 4) and np.ndim(src_lon) == 2:
+    if structured:
         plan = build_plan_structured(src_lon, src_lat, tgt_lon2d, tgt_lat2d,
                                      threshold=threshold, far_factor=far_factor,
                                      method=method)
@@ -164,26 +205,25 @@ def _build_plan(src_lon, src_lat, tgt_lon2d, tgt_lat2d, threshold: float,
         plan = build_plan(np.asarray(src_lon).ravel(), np.asarray(src_lat).ravel(),
                           tgt_lon2d, tgt_lat2d, method=method,
                           threshold=threshold, far_factor=far_factor)
-    return plan
+    return None if plan is None else plan_to_torch(plan, device)
 
 
-def _granule_plan(sat_lon, sat_lat, lons_fine, lats_fine, grid_size: float,
+def _granule_plan(sat_lon, sat_lat, fine: _FineGrid, grid_size: float,
                   method: int, far_factor: float, fast: bool, device):
     """The pixel -> fine-grid SparsePlan of one granule geometry with its
     ``idx`` / ``w`` / ``mask`` on ``device``, or None for an untriangulatable
     granule (not cached).  Cached per (geometries, grid_size, method,
     far_factor, fast, device)."""
     key = (_geom_key(np.atleast_2d(np.asarray(sat_lon)), np.atleast_2d(np.asarray(sat_lat))),
-           _geom_key(lons_fine, lats_fine), float(grid_size), int(method),
+           _geom_key(fine.lon, fine.lat), float(grid_size), int(method),
            float(far_factor), bool(fast), str(device))
     hit = _plan_cache.get(key)
     if hit is not None:
         return hit
-    plan = _build_plan(sat_lon, sat_lat, lons_fine, lats_fine, grid_size, method,
-                       far_factor, fast)
+    plan = _build_plan(sat_lon, sat_lat, fine.lon, fine.lat, grid_size, method,
+                       far_factor, fast, device, targets=fine.on)
     if plan is None:
         return None
-    plan = plan_to_torch(plan, device)
     _plan_cache.put(key, plan)
     return plan
 
@@ -422,16 +462,17 @@ def _regrid_plans(sat_data, ctm_lon2d, ctm_lat2d, grid_size, method: int,
                   up_method: int, far_factor: float, fast: bool, dev):
     """(granule plan, upscaler) of one granule on ``dev``, or None for a
     granule that cannot be triangulated: the geometry keys, the cache
-    lookups, the builds on a miss and the plans' copies to the device."""
+    lookups, and the builds on a miss (on the device, or on the host and
+    copied there)."""
     with span("regrid.plan"):
         threshold_ctm = diag_threshold(ctm_lon2d, ctm_lat2d)
-        lons_fine, lats_fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
+        fine = _fine_grid_cached(ctm_lon2d, ctm_lat2d, grid_size)
         plan = _granule_plan(sat_data.longitude_center, sat_data.latitude_center,
-                             lons_fine, lats_fine, grid_size, method=method,
+                             fine, grid_size, method=method,
                              far_factor=far_factor, fast=fast, device=dev)
         if plan is None:
             return None
-        return plan, make_upscaler(lons_fine, lats_fine, ctm_lon2d, ctm_lat2d, grid_size,
+        return plan, make_upscaler(fine.lon, fine.lat, ctm_lon2d, ctm_lat2d, grid_size,
                                    threshold_ctm, dev, method=up_method,
                                    far_factor=far_factor, fast=fast)
 

@@ -29,9 +29,11 @@ The month path's spans: ``regrid`` (one granule) with ``regrid.plan``,
 ``assemble.map`` and ``assemble.stack`` inside the fused month's ``assemble``
 stage; ``oi.scalar`` (the scalar OI: the curve, its pull, the knee) inside
 ``step``; the fused month's stages.  Its counters:
-``h2d.bytes`` (every host->device copy, :func:`oisat_tpu_torch._device.to_device`)
-and ``syncs`` (each time the host waits on the device, measurement's own
-synchronises aside).
+``h2d.bytes`` (every host->device copy, :func:`oisat_tpu_torch._device.to_device`),
+``syncs`` (each time the host waits on the device, measurement's own
+synchronises aside), and ``regrid.plan_builds_device`` /
+``regrid.plan_builds_host`` (each regrid plan built on a cache miss, by the
+card's kernel or on the host).
 
 Usage::
 

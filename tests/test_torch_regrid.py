@@ -131,6 +131,57 @@ def test_regrid_granule_fast_swath_runs_the_native_builder():
     np.testing.assert_allclose(fast.amf[both].numpy(), slow.amf[both].numpy(), rtol=0.2)
 
 
+def test_a_cpu_regrid_builds_its_plans_on_the_host_once():
+    from oisat_tpu_torch import regridder
+    from oisat_tpu_torch.utils import profiling
+
+    _, clon, clat = make_ctm()
+    g = convert.satellite_amf_from(make_granule(3, 7))
+    regridder._plan_cache.clear()
+    regridder._upscaler_cache.clear()
+    profiling.take()
+    profiling.enable(True)
+    try:
+        port_regrid_granule(1, 0.25, g, clon, clat, "cpu", flag_thresh=0.5)
+        _, first = profiling.take()
+        port_regrid_granule(1, 0.25, g, clon, clat, "cpu", flag_thresh=0.5)
+        _, second = profiling.take()
+    finally:
+        profiling.enable(False)
+    # the granule's plan and the fine -> CTM upscaler's, then two cache hits
+    assert first["regrid.plan_builds_host"] == 2 and "regrid.plan_builds_device" not in first
+    assert not [n for n in second if n.startswith("regrid.plan_builds")]
+
+
+def test_the_fine_grid_goes_to_a_device_once_for_the_swath_kernel():
+    from oisat_tpu_torch import regridder
+    from oisat_tpu_torch.ops.kernels import swath_plan
+    from oisat_tpu_torch.utils import profiling
+
+    _, clon, clat = make_ctm()
+    regridder._fine_grid_cache.clear()
+    fine = regridder._fine_grid_cached(clon, clat, 0.25)
+    assert regridder._fine_grid_cached(clon, clat, 0.25) is fine
+    cpu = torch.device("cpu")
+    profiling.take()
+    profiling.enable(True)
+    try:
+        t = fine.on(cpu)
+        _, first = profiling.take()
+        again = fine.on(cpu)
+        _, second = profiling.take()
+    finally:
+        profiling.enable(False)
+    # the flattened longitudes, then latitudes, copied (and counted) once
+    assert t.dtype == torch.float64 and t.shape == (2, fine.lon.size)
+    assert torch.equal(t[0], torch.from_numpy(fine.lon.ravel()))
+    assert torch.equal(t[1], torch.from_numpy(fine.lat.ravel()))
+    assert again is t and first["h2d.bytes"] == t.nbytes and "h2d.bytes" not in second
+    with pytest.raises(ValueError, match="CUDA"):
+        swath_plan.build_plan_structured_kernel(fine.lon, fine.lat, fine.lon, fine.lat, 0.5,
+                                                device=cpu, targets=t)
+
+
 def test_regrid_granule_misses_domain_and_rejects_other_kinds():
     _, clon, clat = make_ctm()
     far_lon, far_lat = np.meshgrid(np.arange(100, 120, 1.0), np.arange(-40, -20, 1.0))
