@@ -8,8 +8,11 @@ then the plain reference in float64, and with ``--control 1`` the control:
 the reference in the program's place, every stage one step below the
 precision the configuration states.  Prints one JSON line per seed with the
 program's numbers and the control's, each against the float64 reference,
-and the seconds each part took.  The benchmark's own runs never run the
-control.
+the seconds and the peak device memory each part took, the reference's
+knee (and for the full OI its factor, cells and curve), the median
+``sigma_b / sigma_o`` of its month, and the largest and median ratio of the
+program's ``error_OI`` to the reference's.  The benchmark's own runs never
+run the control.
 """
 
 from __future__ import annotations
@@ -66,7 +69,9 @@ def readings(cell, seed: int, device, control: bool, warm: bool) -> dict:
     out = {"seed": seed, "diag": {k: v for k, v in diag.items()
                                   if isinstance(v, (int, float, str))}}
     ctl = None
+    peak = {}
     if control:
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         kept = {}
         try:
@@ -78,6 +83,7 @@ def readings(cell, seed: int, device, control: bool, warm: bool) -> dict:
             out["control_error"] = repr(e)[:300]
         torch.cuda.synchronize()
         t["control_s"] = time.perf_counter() - t0
+        peak["control_gb"] = torch.cuda.max_memory_allocated() / 1e9
     counts = {"program": [0, 0], "control": [0, 0]}
 
     def on_regrid(i, r):
@@ -95,17 +101,31 @@ def readings(cell, seed: int, device, control: bool, warm: bool) -> dict:
         if ctl is not None:
             ctl[2].pop(i, None)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rf, info = R.month_reference(grans, ctm_raw, lon2d, lat2d, config, mix,
                                  R.Precision.reference(), device, on_regrid=on_regrid)
     torch.cuda.synchronize()
     t["reference_s"] = time.perf_counter() - t0
+    peak["reference_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["program"] = C.judge(pf, rf, counts["program"])
-    out["reference_knee"] = info.get("knee")
+    out["reference_info"] = info
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio = rf["ctm_averaged_vcd"] * config["control"]["ctm_error"] / 100.0 / \
+            rf["sat_averaged_error"]
+        err = pf["error_OI"] / rf["error_OI"]
+    out["sigma_ratio_median"] = float(np.nanmedian(np.where(np.isfinite(ratio), ratio, np.nan)))
+    err = err[np.isfinite(err)]
+    if err.size:
+        out["error_oi_ratio"] = {"max": float(err.max()), "median": float(np.median(err)),
+                                 "min": float(err.min())}
     if ctl is not None:
         out["control"] = C.judge(ctl[0], rf, counts["control"])
-        out["control_knee"] = ctl[1].get("knee")
+        out["control_info"] = ctl[1]
     out["seconds"] = t
+    out["peak"] = peak
     return out
 
 

@@ -19,8 +19,9 @@ definitions:
 * observation operators: one per granule kind, in ``benchmark/kinds/``
   (found by the granule's ``kind``), with the helpers here;
 * the monthly average (nanmean; error sqrt(nansum err^2) / N), the bias
-  correction, and the scalar OI (the 99-factor mean-AK curve and its
-  Kneedle knee).
+  correction, and the OI the control keys name: the scalar OI (the
+  99-factor mean-AK curve and its Kneedle knee) or, with ``oi_method:
+  full``, the full-covariance OI of :mod:`benchmark.reference_full_oi`.
 
 Every stage computes in the precision a :class:`Precision` gives it: the
 reference runs all of them in float64; the control, one step below what the
@@ -451,22 +452,28 @@ def month_reference(grans, ctm: dict, ctm_lon2d, ctm_lat2d, config: dict, mix: d
                     prec: Precision, device, on_regrid=None):
     """The month's nine fields (host float64 numpy) from the raw granules and
     the CTM, every stage in ``prec``: each granule's regrid and its kind's
-    observation operator, the average, the bias correction and the scalar
-    OI.  ``on_regrid(i, fields)`` sees each granule's regridded fields as
-    they are made (the check compares the program's with them).  Returns
-    (fields, info)."""
+    observation operator, the average, the bias correction and the OI of
+    the merged control keys' ``oi_method``: scalar (the default), or full
+    with ``length_scale_km`` (default 300, the job runner's) on the first
+    granule's grid.  ``on_regrid(i, fields)`` sees each granule's regridded
+    fields as they are made (the check compares the program's with them).
+    Returns (fields, info): ``info`` has the knee index ``knee``, and for
+    the full OI its factor ``reg``, valid cells ``n`` and ``curve``."""
     ctrl = dict(config["control"])
     ctrl.update(mix.get("control", {}))
-    if ctrl.get("oi_method", "scalar") != "scalar":
-        raise ValueError(f"the reference has the scalar OI only, not {ctrl['oi_method']!r}")
+    method = ctrl.get("oi_method", "scalar")
+    if method not in ("scalar", "full"):
+        raise ValueError(f"oi_method must be 'scalar' or 'full', not {method!r}")
     reg = config["regrid"]
     an, oe = prec.dtype("analysis"), prec.dtype("observation_error")
     avg = _Average()
     state: dict = {}
+    grid = None  # the first granule's (lat2d, lon2d): the full OI's cells
     for i, g in enumerate(grans):
         r = regrid(g, ctm_lon2d, ctm_lat2d, reg, device, prec.dtype("regrid"))
         if on_regrid is not None:
             on_regrid(i, r)
+        grid = r["grid"] if grid is None else grid
         r.update(time=g["time"])
         err2 = _no_inf(r["uncertainty"].to(oe) ** 2)
         fields = granule_kind(g["kind"]).operator(r, ctm, state, prec, device)
@@ -480,7 +487,16 @@ def month_reference(grans, ctm: dict, ctm_lon2d, ctm_lat2d, config: dict, mix: d
     xa = avg.mean("ctm")
     out = {"sat_averaged_vcd": sat, "sat_averaged_error": err, "ctm_averaged_vcd": xa,
            "aux1": avg.mean("aux1"), "aux2": avg.mean("aux2")}
-    xb, ak, inc, eo, idx = scalar_oi(xa, sat, (xa * ctrl["ctm_error"] / 100.0) ** 2,
-                                     err.to(an) ** 2, an)
+    if method == "full":
+        from benchmark.reference_full_oi import full_oi
+
+        lat2d, lon2d = grid
+        xb, ak, inc, eo, info = full_oi(xa, sat, xa * ctrl["ctm_error"] / 100.0, err.to(an),
+                                        lat2d, lon2d, float(ctrl.get("length_scale_km", 300.0)),
+                                        an)
+    else:
+        xb, ak, inc, eo, idx = scalar_oi(xa, sat, (xa * ctrl["ctm_error"] / 100.0) ** 2,
+                                         err.to(an) ** 2, an)
+        info = {"knee": idx}
     out.update(ctm_averaged_vcd_corrected=xb, ak_OI=ak, increment_OI=inc, error_OI=eo)
-    return {k: v.double().cpu().numpy() for k, v in out.items()}, {"knee": idx}
+    return {k: v.double().cpu().numpy() for k, v in out.items()}, info
