@@ -1277,24 +1277,39 @@ def kernel_counts(oi_scan, cov) -> tuple:
 
 @contextlib.contextmanager
 def knees_picked():
-    """The knee indices the matrix-free branch's SLQ curve gives while inside
-    (its ``info`` has no factor, as in the JAX package): a list that
-    ``oi_full.slq_knee`` appends to, restored on exit."""
+    """The knee indices the large branch's curve gives while inside (the
+    float32 SLQ curve's, or the exact branch's float64 one): a list that
+    ``oi_full.kneedle_index_np`` appends to, restored on exit."""
     from oisat_tpu_torch.ops import oi_full as full_oi
 
-    real = full_oi.slq_knee
+    real = full_oi.kneedle_index_np
     seen: list = []
 
     def spy(*args, **kw):
         out = real(*args, **kw)
-        seen.append(out[0])
+        seen.append(int(out))
         return out
 
-    full_oi.slq_knee = spy
+    full_oi.kneedle_index_np = spy
     try:
         yield seen
     finally:
-        full_oi.slq_knee = real
+        full_oi.kneedle_index_np = real
+
+
+@contextlib.contextmanager
+def jax_exact_limit():
+    """The exact float64 branch held to the JAX package's REFINE_MAX_CELLS
+    while inside, as on a card too small for a larger one, so that a month
+    above it takes the Nystrom PCG and the sweep kernel."""
+    from oisat_tpu_torch.ops import oi_full_matfree as matfree
+
+    real = matfree.exact_max_cells
+    matfree.exact_max_cells = lambda device, block=1024: matfree.REFINE_MAX_CELLS
+    try:
+        yield
+    finally:
+        matfree.exact_max_cells = real
 
 
 def log_matfree(what: str, info: dict, first_s: float, warm_s: float, warm_ms: dict,
@@ -1348,8 +1363,10 @@ def hold_engines(what: str, kern: dict, plain: dict, knees: tuple, inc: tuple) -
 def phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, grid):
     """Phase 13a: phase 8's staged MOPITT session (a copy: phases 11 and 12
     read the original) through ``oi("MOPITT", method="full")``: 64,261 valid
-    cells padded to 64,512, above every dense limit and REFINE_MAX_CELLS, so
-    the SLQ knee, the Nystrom PCG (k = 2,048), the Woodbury diagonal and the
+    cells padded to 64,512, above every dense limit and, with the exact
+    branch held to REFINE_MAX_CELLS (:func:`jax_exact_limit`: the card would
+    otherwise solve the month exactly), the SLQ knee, the Nystrom PCG
+    (k = 2,048), the Woodbury diagonal and the
     sampled float64 residual, every sweep on ``b_matmat.cu``.  A warm
     repeat through ``oi_full`` gives its stage split, the same solve and
     bitwise-equal fields; the same cells through ``oi_full(cov_impl=
@@ -1433,8 +1450,9 @@ def phase_matfree_north_america(dev, oi_scan, cov, sweep):
     """Phase 13b: 60 OMI-shaped orbits over North America (TEMPO's field of
     regard, 20-60 N x 140-60 W, 81 x 129 = 10,449 cells) through
     ``analyze_month_fused(oi_method="full")``: above the scan's dense limit,
-    under REFINE_MAX_CELLS once padded, so the SLQ knee and the exact float64
-    solve on the card.  ``oi_full_matfree(refine=0)`` (the float32 Nystrom
+    under REFINE_MAX_CELLS once padded, so the exact float64 branch: the
+    knee of the float64 SLQ curve and the exact solve on the card, with no
+    sweep on ``b_matmat.cu``.  ``oi_full_matfree(refine=0)`` (the float32 Nystrom
     PCG) on the same compacted inputs and factor lands within twice its own
     ``resid_abs`` of the direct increment; the month with
     ``cov_impl="plain"`` picks the same knee and branch.  Returns the
@@ -1466,7 +1484,7 @@ def phase_matfree_north_america(dev, oi_scan, cov, sweep):
     # ---- end of the main path ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(counts == (0, 0), f"13b: the matrix-free path launched {counts} kernels")
-    check(launches > 0, "13b: the matrix-free path never launched b_matmat.cu")
+    check(launches == 0, f"13b: the exact float64 branch launched b_matmat.cu {launches} times")
     d = obj.oi_diagnostics
     cp = compact(*obj.full_oi_inputs())
     pv = pad_for_matfree(cp)
@@ -2564,7 +2582,9 @@ def main() -> int:
     mesh_paths = {"omi_month_step_2x2": mesh_month["launches"]}
     mesh_paths.update(phase_mesh_mopitt(dev, oi_scan, mopitt_job, regs_np, mesh2))
     del mopitt_job
-    mopitt_cells, sweep_paths = phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, regs_np)
+    with jax_exact_limit():
+        mopitt_cells, sweep_paths = phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt,
+                                                         regs_np)
     sweep_paths = {"mopitt_oi_full_13a": sweep_paths}
     by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
                                                                     full["reader"])

@@ -3,7 +3,8 @@
 Every host->device copy of the month path goes through :func:`to_device`,
 which counts its bytes (``h2d.bytes``) and the host's wait (``syncs``: a
 copy from pageable memory waits for the stream) in
-:mod:`oisat_tpu_torch.utils.profiling` when tracing is on.  The staged driver
+:mod:`oisat_tpu_torch.utils.profiling` when tracing is on; :func:`to_host`
+counts a pull's wait likewise.  The staged driver
 path also counts its host<->device copies here (:data:`COPIES`): every array
 it moves goes through :func:`h2d` / :func:`d2h`.
 """
@@ -15,8 +16,8 @@ import torch
 
 from oisat_tpu_torch.utils.profiling import count
 
-__all__ = ["resolve_device", "default_device", "COPIES", "positive_strides", "to_device", "h2d",
-           "d2h", "size", "granule_device"]
+__all__ = ["resolve_device", "default_device", "COPIES", "positive_strides", "to_device", "to_host",
+           "h2d", "d2h", "size", "granule_device"]
 
 # copies made by the staged path since the caller last reset them
 COPIES = {"h2d": 0, "d2h": 0}
@@ -41,6 +42,13 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
+def to_host(t) -> np.ndarray:
+    """The tensor ``t`` as a host numpy array, the host's wait counted as
+    one of ``syncs``."""
+    count("syncs")
+    return t.detach().cpu().numpy()
+
+
 def h2d(x, device, dtype=None) -> torch.Tensor:
     """``x`` as a tensor on ``device``: a host array is copied (and counted
     in :data:`COPIES`), a tensor already there is passed through."""
@@ -56,8 +64,7 @@ def d2h(t) -> np.ndarray:
     if not torch.is_tensor(t):
         return np.asarray(t)
     COPIES["d2h"] += 1
-    count("syncs")
-    return t.detach().cpu().numpy()
+    return to_host(t)
 
 
 def size(x) -> int:

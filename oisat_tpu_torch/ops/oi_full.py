@@ -27,16 +27,28 @@ What replaces what:
   production regime, monthly-average sigma_b/sigma_o ~ 150-300), the
   innovation system and the exact posterior diagonal are solved again in
   float64 on the tensors' device -- true float64 on the H100, where the TPU
-  emulated it.  The algebra is kept: the trailing-sub-triangle blocks
-  (n^3/3), the ``L^-1 B = L^T - so^2 V`` identity for ``q = diag(B A^-1 B)``
-  and both posterior forms picked per cell (:func:`_exact_sb_diag`).
+  emulated it -- in one N x N buffer built, scaled and factored in place.
+  The algebra is kept: the trailing-sub-triangle blocks (n^3/3), the
+  ``L^-1 B = L^T - so^2 V`` identity for ``q = diag(B A^-1 B)`` and both
+  posterior forms picked per cell (:func:`_exact_sb_diag`).
   :func:`_sampled_resid_f64` checks the result on the host in float64 with
   the JAX seed, so it samples the same rows.
 * :func:`oi_full` is the grid front end: the same validity rule, y < 0
   clamp, one-scale normalisation, compaction, conditioning gate and
   scatter-back.  Above ``DENSE_SCAN_MAX_CELLS`` (with the scan) or
-  ``DENSE_MAX_CELLS`` (without) valid cells it takes :func:`_oi_full_large`:
-  the SLQ knee and the matrix-free solve of the sibling module
+  ``DENSE_MAX_CELLS`` (without) valid cells it takes :func:`_oi_full_large`.
+  There, from ``NYSTROM_MIN_CELLS`` up to the exact limit
+  (:func:`~oisat_tpu_torch.ops.oi_full_matfree.exact_max_cells`: the JAX
+  package's ``REFINE_MAX_CELLS`` = 16,384 off CUDA; on a CUDA card the
+  largest multiple of 1,024 whose float64 N x N takes at most half the
+  card's total memory, 72,704 on an 80 GB H100), :func:`_oi_full_exact`
+  runs the whole analysis in float64 in one N x N buffer
+  (:func:`_exact_system`): the correlation G, the knee of the float64 SLQ
+  curve on G (:func:`mean_ak_curve_slq_dense`, the port's own: the twin
+  takes its float32 knee), then ``A = r D_b G D_b + R`` in place, the
+  blocked in-place Cholesky (:func:`_cholesky_`), the solve and both
+  diagonals.  Beyond the limit, the float32 SLQ knee and the Nystrom PCG
+  with the Woodbury posterior diagonal of the sibling module
   :mod:`oisat_tpu_torch.ops.oi_full_matfree`, whose public names this
   module re-exports.
 * ``OISAT_EXACT_DEVICE=0`` (explicit opt-out only) takes the host LAPACK
@@ -57,36 +69,40 @@ JAX package re-solves on the host.
 from __future__ import annotations
 
 import math
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch._device import resolve_device, to_device, to_host
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, build_covariance
 from oisat_tpu_torch.ops.knee import kneedle_index_np
 from oisat_tpu_torch.ops.oi import regularization_grid
+from oisat_tpu_torch.ops import oi_full_matfree as matfree
 from oisat_tpu_torch.ops.oi_full_matfree import (  # the twin's names, importable here too
     NYSTROM_MIN_CELLS,
     REFINE_MAX_CELLS,
+    _exact_device_wanted,
     _sphere_points,
     mean_ak_curve_slq,
+    mean_ak_curve_slq_dense,
     oi_full_matfree,
 )
-from oisat_tpu_torch.utils.profiling import StageClock
+from oisat_tpu_torch.utils.profiling import StageClock, count
 
 __all__ = ["OIFullResult", "oi_full", "oi_full_dense", "oi_full_dense_scan",
            "oi_full_matfree", "mean_ak_curve_slq", "DENSE_MAX_CELLS",
            "DENSE_SCAN_MAX_CELLS", "REFINE_MAX_CELLS", "NYSTROM_MIN_CELLS",
            "DEVICE_EXACT_RESID_GATE"]
 
-# The JAX package's limits, kept so both packages take the same branch at
-# every n (they were sized for a 16 GB TPU; re-deriving them for 80 GB
-# waits for the port's bench, ROADMAP queue 1 item 3.8).
+# The JAX package's dense limits, kept so both packages take the same branch
+# at every n (sized for a 16 GB TPU).  The exact float64 branch's limit is
+# the JAX package's REFINE_MAX_CELLS off CUDA only: on a CUDA card it comes
+# from the card's total memory (oi_full_matfree.exact_max_cells).
 DENSE_MAX_CELLS = 10_240
 DENSE_SCAN_MAX_CELLS = 6_144
 EXACT_DIAG_BLOCK = 2048  # identity columns per trailing solve of the tail
+EXACT_FACTOR_BLOCK = 2048  # rows and columns per block of the tail's factor and solves
 DEVICE_EXACT_RESID_GATE = 1e-5  # the JAX acceptance bar for the tail's
 # host-f64 row-sampled true residual; true float64 lands orders below it
 TIGHT_CONDITIONING = 1e4  # (max sb sqrt(r) / min so)^2 above which the tail runs
@@ -214,39 +230,133 @@ def _kernel_block_f64(u3_64, s, e, kappa: float, out=None, full=None):
     return g
 
 
-def _exact_tail(u3, sb, so2, d, kappa: float, diag_block: int = EXACT_DIAG_BLOCK):
-    """``_exact_tail_prog`` in float64 on the tensors' device: build the
-    correlation kernel from unit vectors ``u3`` (N, 3), scale to
-    ``A = D_b G D_b + D_o^2``, Cholesky-factor, solve ``A x = d``, and
-    accumulate ``diag(A^-1)`` and ``q = diag(B A^-1 B)`` over blocks of
-    ``diag_block`` identity columns.
+def _correlation(u3, kappa: float) -> torch.Tensor:
+    """The N x N correlation ``exp(kappa (u.u - 1))`` of the unit vectors
+    ``u3`` (N, 3), in their dtype and on their device: one new tensor, every
+    step after the product in place (the argument clipped at -60, as on the
+    host)."""
+    g = u3 @ u3.T
+    return g.clamp_(-1.0, 1.0).sub_(1.0).mul_(kappa).clamp_(min=-60.0).exp_()
+
+
+def _cholesky_(a, block: int = EXACT_FACTOR_BLOCK) -> torch.Tensor:
+    """Factor the SPD ``a`` (N, N) in place, right-looking by ``block``
+    columns in torch operations: each diagonal block factored, its panel
+    solved, the lower trailing block columns updated by GEMMs.  ``a``'s
+    lower triangle becomes L with ``a = L L^T``; the upper triangle outside
+    the diagonal blocks keeps its values, and nothing reads it.  The
+    workspace is one (N, block) panel.  On an H100 at N = 64,261 this takes
+    2.4 s where cuSOLVER's own in-place potrf (``torch.linalg.cholesky_ex``
+    on the column-major view) takes 17.7 s.  Raises ``FloatingPointError``
+    when a diagonal block is not positive definite."""
+    n = a.shape[0]
+    bad = torch.zeros((), dtype=torch.int32, device=a.device)
+    for k0 in range(0, n, block):
+        k1 = min(k0 + block, n)
+        d, info = torch.linalg.cholesky_ex(a[k0:k1, k0:k1])
+        bad = torch.maximum(bad, info)
+        a[k0:k1, k0:k1] = d
+        if k1 == n:
+            break
+        panel = torch.linalg.solve_triangular(d.T, a[k1:, k0:k1], upper=True, left=False)
+        a[k1:, k0:k1] = panel
+        for j0 in range(k1, n, block):
+            j1 = min(j0 + block, n)
+            a[j0:, j0:j1].addmm_(panel[j0 - k1:], panel[j0 - k1:j1 - k1].T, alpha=-1.0)
+    count("syncs")
+    if int(bad):
+        raise FloatingPointError("oi_full: the float64 factorization failed")
+    return a
+
+
+def _forward_(lf, x, start: int = 0, block: int = EXACT_FACTOR_BLOCK) -> torch.Tensor:
+    """Solve ``L[start:, start:] X = x`` in place (x: (N - start, K)) from the
+    lower triangle of ``lf``, by row blocks: one GEMM against the rows
+    solved so far and one small triangular solve each.  Every view of
+    ``lf`` is read where it lies."""
+    n = lf.shape[0]
+    for i0 in range(start, n, block):
+        i1 = min(i0 + block, n)
+        r0, r1 = i0 - start, i1 - start
+        if r0:
+            x[r0:r1].addmm_(lf[i0:i1, start:i0], x[:r0], alpha=-1.0)
+        x[r0:r1] = torch.linalg.solve_triangular(lf[i0:i1, i0:i1], x[r0:r1], upper=False)
+    return x
+
+
+def _backward_(lf, x, block: int = EXACT_FACTOR_BLOCK) -> torch.Tensor:
+    """Solve ``L^T X = x`` in place from the lower triangle of ``lf``."""
+    n = lf.shape[0]
+    for i0 in reversed(range(0, n, block)):
+        i1 = min(i0 + block, n)
+        if i1 < n:
+            x[i0:i1].addmm_(lf[i1:, i0:i1].T, x[i1:], alpha=-1.0)
+        x[i0:i1] = torch.linalg.solve_triangular(lf[i0:i1, i0:i1].T, x[i0:i1], upper=True)
+    return x
+
+
+def _inverse_diags(lf, so2, diag_block: int = EXACT_DIAG_BLOCK,
+                   block: int = EXACT_FACTOR_BLOCK):
+    """``(diag(A^-1), q = diag(B A^-1 B))`` from the factor L in ``lf``'s lower
+    triangle, over blocks of ``diag_block`` identity columns.
 
     ``L^-1 e_j`` is zero above row j, so block j0 solves only the trailing
-    (n - j0) sub-triangle (n^3/3 in all); the q columns come free of a
+    (N - j0) sub-triangle (N^3/3 in all); the q columns come free of a
     second solve, ``L^-1 B[:, blk] = L^T[:, blk] - so2 * V`` with
     ``V = L^-1 I[:, blk]``, plus the row sums of squares of ``L[blk, :j0]``.
-    Both diagonals are pure sums of squares.  The last block may be ragged.
-    Returns (x, diag_ainv, q), float64 tensors."""
-    g = u3 @ u3.T
-    g.clamp_(-1.0, 1.0).sub_(1.0).mul_(kappa).clamp_(min=-60.0).exp_()
-    g.mul_(sb[None, :] * sb[:, None])
-    g.diagonal().add_(so2)
-    chol = torch.linalg.cholesky(g)
-    del g
-    x = torch.cholesky_solve(d[:, None], chol)[:, 0]
-    n = chol.shape[0]
-    dainv = torch.empty(n, dtype=chol.dtype, device=chol.device)
+    Both diagonals are pure sums of squares.  The last block may be ragged;
+    the workspace is (N, diag_block)."""
+    n = lf.shape[0]
+    dainv = torch.empty(n, dtype=lf.dtype, device=lf.device)
     q = torch.empty_like(dainv)
     for j0 in range(0, n, diag_block):
-        k = min(diag_block, n - j0)
-        j1 = j0 + k
-        eye = torch.eye(n - j0, k, dtype=chol.dtype, device=chol.device)
-        v = torch.linalg.solve_triangular(chol[j0:, j0:], eye, upper=False)
-        vb = chol[j0:j1, j0:].T - v * so2[j0:j1][None, :]
-        head = chol[j0:j1, :j0]  # rows of L left of the sub-triangle
-        dainv[j0:j1] = torch.sum(v * v, dim=0)
-        q[j0:j1] = torch.sum(head * head, dim=1) + torch.sum(vb * vb, dim=0)
-    return x, dainv, q
+        j1 = min(j0 + diag_block, n)
+        k = j1 - j0
+        v = _forward_(lf, torch.eye(n - j0, k, dtype=lf.dtype, device=lf.device), j0, block)
+        dainv[j0:j1] = v.square().sum(dim=0)
+        v.mul_(-so2[j0:j1])  # L^T[j0:, blk] - so2 V: L^T is zero below the block's rows
+        v[:k] += torch.tril(lf[j0:j1, j0:j1]).T
+        q[j0:j1] = lf[j0:j1, :j0].square().sum(dim=1) + v.square().sum(dim=0)
+    return dainv, q
+
+
+def _exact_system(u3, sb, so2, d, kappa: float, diag_block: int = EXACT_DIAG_BLOCK, *,
+                  knee=None, clock: StageClock | None = None):
+    """``_exact_tail_prog`` in float64 on the tensors' device, in one N x N
+    buffer: the correlation G of the unit vectors ``u3`` (N, 3); with
+    ``knee`` the factor ``r = knee(G)`` (a function that reads G, such as
+    the float64 SLQ curve and its knee), else r = 1; then in place
+    ``A = r D_b G D_b + D_o^2``, its Cholesky factor (:func:`_cholesky_`),
+    the solve ``A x = d`` and ``diag(A^-1)``, ``q = diag(B A^-1 B)`` with
+    ``B = r D_b G D_b`` (:func:`_inverse_diags`).  The workspace besides the
+    buffer is O(N x diag_block), and the buffer is freed on return.
+    ``clock`` marks "curve" (G and the knee; "covariance" without one),
+    "factor" (the scaling and the factor), "solve" and "diag".  Returns
+    (x, diag_ainv, q, r): three float64 tensors and a float."""
+    clock = clock or StageClock(None, "cpu")
+    a = _correlation(u3, kappa)
+    r = 1.0 if knee is None else float(knee(a))
+    clock.mark("covariance" if knee is None else "curve")
+    s = sb * math.sqrt(r)
+    a.mul_(s[:, None]).mul_(s[None, :])
+    a.diagonal().add_(so2)
+    _cholesky_(a)
+    clock.mark("factor")
+    x = d[:, None].clone(memory_format=torch.contiguous_format)
+    x = _backward_(a, _forward_(a, x))[:, 0]
+    clock.mark("solve")
+    dainv, q = _inverse_diags(a, so2, diag_block)
+    clock.mark("diag")
+    return x, dainv, q, r
+
+
+def _exact_tail(u3, sb, so2, d, kappa: float, diag_block: int = EXACT_DIAG_BLOCK):
+    """:func:`_exact_system` without a knee: build ``A = D_b G D_b + D_o^2``
+    from unit vectors ``u3`` (N, 3), factor it, solve ``A x = d`` and
+    accumulate ``diag(A^-1)`` and ``q = diag(B A^-1 B)`` over blocks of
+    ``diag_block`` identity columns, all in one float64 N x N buffer.
+    Returns (x, diag_ainv, q), float64 tensors."""
+    return _exact_system(u3, sb, so2, d, kappa, diag_block)[:3]
 
 
 def _exact_sb_diag(so2_np, pack, bd):
@@ -276,12 +386,6 @@ def _sampled_resid_f64(u3_64, sb_64, so2_64, x64, d64, kappa: float,
                           + so2_64[rows] * x64[rows])
     dn = float(np.linalg.norm(d64))
     return float(np.sqrt(n / m) * np.linalg.norm(r_rows)) / dn if dn > 0 else 0.0
-
-
-def _exact_device_wanted() -> bool:
-    """``OISAT_EXACT_DEVICE=0`` opts out of the device tail (the host LAPACK
-    float64 solve then serves)."""
-    return os.environ.get("OISAT_EXACT_DEVICE", "1") != "0"
 
 
 def _direct_solve_f64(u3_64, sb_64, so2_64, d64, kappa: float, row_block: int = 512,
@@ -378,12 +482,22 @@ def _exact_tail_solve(sbv, sov, d64, lat, lon, length_scale_km: float, device,
     dev = resolve_device(device)
 
     def t64(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+        return to_device(np.ascontiguousarray(a), dev, torch.float64)
 
     x, dainv, q = _exact_tail(t64(u3_64), t64(sbv), t64(so2), t64(d64), kappa,
                               diag_block=diag_block)
-    x64, dainv, q = (v.cpu().numpy() for v in (x, dainv, q))
-    clock.mark("tail")
+    x64, dainv, q, rr = _checked_pull(x, dainv, q, u3_64, sbv, so2, d64, kappa, clock, "tail")
+    return x64, (dainv, q), rr, "direct_f64_dev"
+
+
+def _checked_pull(x, dainv, q, u3_64, sbv, so2, d64, kappa: float, clock: StageClock,
+                  stage: str):
+    """The device tail's (x, diag(A^-1), q) pulled in one copy (the stage
+    ``stage``) and held to the no-fallback rule: a non-finite value, or a
+    sampled float64 residual of x (the stage "tail_resid") above
+    ``DEVICE_EXACT_RESID_GATE``, raises.  Returns (x64, dainv, q, resid)."""
+    x64, dainv, q = to_host(torch.stack([x, dainv, q]))
+    clock.mark(stage)
     if not (np.isfinite(x64).all() and np.isfinite(dainv).all() and np.isfinite(q).all()):
         raise FloatingPointError("oi_full: the float64 exact tail gave non-finite values")
     rr = _sampled_resid_f64(u3_64, sbv, so2, x64, d64, kappa)
@@ -391,7 +505,7 @@ def _exact_tail_solve(sbv, sov, d64, lat, lon, length_scale_km: float, device,
     if not rr <= DEVICE_EXACT_RESID_GATE:
         raise FloatingPointError(f"oi_full: the exact tail's sampled float64 residual "
                                  f"{rr:.3e} exceeds the gate {DEVICE_EXACT_RESID_GATE:g}")
-    return x64, (dainv, q), rr, "direct_f64_dev"
+    return x64, dainv, q, rr
 
 
 # ---------------------------------------------------------------------------
@@ -465,18 +579,20 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     the conditioning-gated float64 exact tail; ``info`` is None unless the
     tail ran, then ``solver`` ("dense+direct_f64_dev", or "dense+direct_f64"
     under ``OISAT_EXACT_DEVICE=0``), ``reg``, ``f64_resid`` and
-    ``exact_diag``.  Above: :func:`_oi_full_large` (the SLQ knee and
+    ``exact_diag``.  Above: :func:`_oi_full_large` (the exact float64 branch
+    with its float64 knee, or beyond it the SLQ knee and
     :func:`oi_full_matfree`), whose ``info`` has the solver's keys plus
     ``stat_norm``, with ``resid_abs`` and ``stat_norm`` in the fields'
-    physical units.
+    physical units (and ``reg``, the factor, where the exact branch ran).
 
     With a ``stage_ms`` dict, the wall milliseconds of each stage (the device
     synchronised at each stage's end) are added to it under "oi_full.<stage>"
     and sum to the call's wall time: compact, then covariance, eigh,
     scan_gemms, knee, update (or dense_solve), pull, tail, tail_resid on the
-    dense branch, or slq, nystrom, pcg, refine, tail, tail_resid, diag,
-    coloring, probe (those the solve reaches) on the matrix-free one, then
-    scatter.
+    dense branch; curve (or covariance), factor, solve, diag, pull and
+    tail_resid on the large branch's exact one; or slq, nystrom, pcg,
+    refine, tail, tail_resid, diag, coloring, probe (those the solve
+    reaches) on the matrix-free one; then scatter.
 
     ``mesh``: the matrix-free branch shards its sweeps over the mesh's
     positions (:func:`oi_full_matfree`); the dense branch ignores it, and a
@@ -600,11 +716,16 @@ def slq_knee(pv: Padded, length_scale_km: float, device, block: int = MATFREE_BL
 def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
                    clock: StageClock | None = None, block: int = MATFREE_BLOCK, mesh=None,
                    cov_impl: str = "auto"):
-    """The matrix-free branch of :func:`oi_full`, as the twin's
-    ``_oi_full_large``: the compacted cells padded to a ``block`` multiple;
-    with ``regularization_on`` the knee of the full-domain SLQ mean-AK curve
-    (:func:`slq_knee`) picks the factor r and sigma_b is scaled by sqrt(r);
-    then :func:`oi_full_matfree`, every sweep on ``cov_impl``'s engine.  Sets ``info["stat_norm"]`` (the
+    """The large branch of :func:`oi_full`, as the twin's ``_oi_full_large``:
+    the compacted cells padded to a ``block`` multiple.  Where the padded
+    count is in the exact float64 branch's range (``NYSTROM_MIN_CELLS`` up to
+    :func:`~oisat_tpu_torch.ops.oi_full_matfree.exact_max_cells`, the device
+    tail wanted), :func:`_oi_full_exact`: the knee from the float64 curve
+    and the exact posterior, in one N x N buffer.  Elsewhere, with
+    ``regularization_on`` the knee of the full-domain float32 SLQ mean-AK
+    curve (:func:`slq_knee`) picks the factor r and sigma_b is scaled by
+    sqrt(r); then :func:`oi_full_matfree`, every sweep on ``cov_impl``'s
+    engine.  Sets ``info["stat_norm"]`` (the
     posterior-std norm) and prints the twin's WARNING when the solve did not
     converge and its field-error bound ``resid_abs`` is not well under
     ``stat_norm``.  Returns (xb, ak, increment, err, info), compacted, in the
@@ -612,15 +733,21 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
     clock = clock or StageClock(None, "cpu")
     n = cp.idx.size
     pv = pad_for_matfree(cp, block)
-    sb_v = pv.sb
-    if regularization_on:
-        reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh, cov_impl=cov_impl)
-        # r B = (sqrt(r) sigma_b) C (sqrt(r) sigma_b)
-        sb_v = sb_v * np.sqrt(float(regularization_grid()[reg_index]))
-        clock.mark("slq")
-    xb_v, ak_v, inc_v, err_v, info = oi_full_matfree(
-        pv.xa, pv.y, sb_v, pv.so, pv.lat, pv.lon, length_scale_km, block=block,
-        valid=pv.valid, device=dev, clock=clock, mesh=mesh, cov_impl=cov_impl)
+    if (matfree.NYSTROM_MIN_CELLS <= pv.xa.size <= matfree.exact_max_cells(dev, block)
+            and _exact_device_wanted()):
+        xb_v, ak_v, inc_v, err_v, info = _oi_full_exact(cp, length_scale_km, regularization_on,
+                                                        dev, clock, block)
+    else:
+        sb_v = pv.sb
+        if regularization_on:
+            reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh,
+                                    cov_impl=cov_impl)
+            # r B = (sqrt(r) sigma_b) C (sqrt(r) sigma_b)
+            sb_v = sb_v * np.sqrt(float(regularization_grid()[reg_index]))
+            clock.mark("slq")
+        xb_v, ak_v, inc_v, err_v, info = oi_full_matfree(
+            pv.xa, pv.y, sb_v, pv.so, pv.lat, pv.lon, length_scale_km, block=block,
+            valid=pv.valid, device=dev, clock=clock, mesh=mesh, cov_impl=cov_impl)
     # numerics against statistics: the solve's field-error bound resid_abs
     # against the posterior-std norm the analysis is determined to
     stat = float(np.linalg.norm(err_v[:n]))
@@ -634,3 +761,54 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
               f"posterior-std norm {stat:.2e}); posterior fields are "
               f"correspondingly approximate")
     return xb_v[:n], ak_v[:n], inc_v[:n], err_v[:n], info
+
+
+def _oi_full_exact(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
+                   clock: StageClock, block: int = MATFREE_BLOCK):
+    """The exact float64 branch of :func:`_oi_full_large` on the n compacted
+    cells (unpadded): one copy of the unit vectors, sigma_b, sigma_o^2 and
+    the innovation to ``dev``; :func:`_exact_system`, whose knee (with
+    ``regularization_on``) is the Kneedle knee of the float64 SLQ curve on
+    the system's own correlation buffer (:func:`mean_ak_curve_slq_dense`,
+    with the float32 sweep's probes over n padded to ``block``, and its
+    steps); one pull of x and both diagonals; then the checks and the
+    posterior of :func:`_exact_tail_solve`'s callers: a non-finite result
+    or a sampled float64 residual above ``DEVICE_EXACT_RESID_GATE`` raises.
+    Counts ``oi_full.exact_cells`` (n) and ``oi_full.exact_bytes`` (the
+    buffer's bytes).  ``clock`` marks "curve" (or "covariance"), "factor",
+    "solve", "diag", "pull" and "tail_resid".  Returns (xb, ak, increment,
+    err, info) as compacted numpy vectors in the normalised units, ``info``
+    with :func:`oi_full_matfree`'s keys for its exact branch and ``reg``."""
+    n = cp.idx.size
+    kappa = (EARTH_RADIUS_KM / float(length_scale_km)) ** 2
+    u3_64 = _sphere_points(cp.lat, cp.lon)
+    so2 = cp.so ** 2
+    d64 = cp.y - cp.xa
+    count("oi_full.exact_cells", n)
+    count("oi_full.exact_bytes", 8 * n * n)
+    knee = None
+    if regularization_on:
+        grid = regularization_grid()
+
+        def knee(g):
+            curve = mean_ak_curve_slq_dense(g, cp.sb, cp.so, grid, block=block,
+                                            n_probes=SLQ_PROBES, m=SLQ_STEPS)
+            with np.errstate(invalid="ignore"):
+                return grid[int(kneedle_index_np(grid, curve, fallback=0))]
+
+    t = to_device(np.concatenate([u3_64, np.stack([cp.sb, so2, d64], axis=1)], axis=1), dev,
+                  torch.float64)
+    x, dainv, q, r = _exact_system(t[:, :3], t[:, 3], t[:, 4], t[:, 5], kappa, knee=knee,
+                                   clock=clock)
+    sbv = cp.sb * math.sqrt(r)
+    x64, dainv, q, rr = _checked_pull(x, dainv, q, u3_64, sbv, so2, d64, kappa, clock, "pull")
+    bd = sbv ** 2
+    increment = d64 - so2 * x64
+    sb_diag = _exact_sb_diag(so2, (dainv, q), bd)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ak = 1.0 - sb_diag / bd
+    info = {"cg_iters": 0, "cg_resid": rr, "ncolors": 0, "nchunks": 0, "nreps": 0,
+            "precond": "direct", "solver": "direct_f64_dev", "exact_diag": True,
+            "refine_passes": 0, "f64_resid": rr,
+            "resid_abs": rr * float(np.linalg.norm(d64)), "reg": float(r)}
+    return cp.xa + increment, ak, increment, np.sqrt(np.maximum(sb_diag, 0.0)), info

@@ -27,13 +27,18 @@ Nothing here forms the N x N covariance:
 * :func:`mean_ak_curve_slq` is the stochastic-Lanczos-quadrature mean-AK
   curve; its probes come from ``np.random.default_rng(seed)`` over the
   block-padded n exactly as in the twin, so the curve and its knee can be
-  held equal.
+  held equal.  :func:`mean_ak_curve_slq_dense` is the same curve in float64
+  on the N x N correlation that the exact branch already holds (the port's
+  own: the twin has no float64 curve).
 * :func:`_distance_coloring` and its helpers are host numpy / scipy copies
   of the twin's.
 * :func:`oi_full_matfree` is the solver: the exact float64 tail of
-  ``ops/oi_full.py`` at npad <= ``REFINE_MAX_CELLS``, else Nystrom PCG with
-  the Woodbury posterior diagonal (or ``refine=p`` mixed-precision
-  refinement passes), or Jacobi CG with R-scaled coloured probes.
+  ``ops/oi_full.py`` at npad <= :func:`exact_max_cells` (the JAX package's
+  ``REFINE_MAX_CELLS`` off CUDA; on a CUDA card a limit from its total
+  memory, 72,704 on an 80 GB H100), else Nystrom PCG with the Woodbury
+  posterior diagonal (or ``refine=p`` mixed-precision refinement passes),
+  or Jacobi CG with R-scaled coloured probes.  The Woodbury diagonal thus
+  serves only above the exact limit.
 
 ``mesh=`` (a :class:`~oisat_tpu_torch.parallel.mesh.Mesh`) shards every
 sweep: the column-chunk axis is split over all of the mesh's positions,
@@ -53,30 +58,62 @@ result).
 from __future__ import annotations
 
 import hashlib
+import math
 import operator
+import os
 
 import numpy as np
 import torch
 
-from oisat_tpu_torch._device import resolve_device
+from oisat_tpu_torch._device import resolve_device, to_device, to_host
 from oisat_tpu_torch.ops.kernels.b_matmat import B_MATMAT_IMPLS
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, radians_f32
 from oisat_tpu_torch.parallel.mesh import sum_in_order
 from oisat_tpu_torch.utils.lru import LockedLRU
 from oisat_tpu_torch.utils.profiling import StageClock
 
-__all__ = ["oi_full_matfree", "mean_ak_curve_slq", "NYSTROM_MIN_CELLS", "REFINE_MAX_CELLS"]
+__all__ = ["oi_full_matfree", "mean_ak_curve_slq", "mean_ak_curve_slq_dense", "exact_max_cells",
+           "NYSTROM_MIN_CELLS", "REFINE_MAX_CELLS"]
 
 LANES = 128  # the Nystrom rank is rounded up to it, as in the twin
-# the JAX package's limits, kept so both packages take the same branch
+# the JAX package's limits, kept so both packages take the same branch off
+# CUDA; REFINE_MAX_CELLS, the exact branch's, was sized for a 16 GB TPU, and
+# a CUDA card takes exact_max_cells instead
 NYSTROM_MIN_CELLS = 4096
 REFINE_MAX_CELLS = 16384
+# share of a CUDA card's total memory the exact branch's one float64 N x N
+# buffer may take: the rest holds the month's other tensors, the branch's
+# O(N x block) workspace and the allocator's slack
+EXACT_MEMORY_SHARE = 0.5
 REFINE_CACHE_BYTES = 8 << 30  # dense host float64 kernel cache of refinement
 _BALL_CHUNK = 4096  # neighbour-list chunk of the host colouring
 JACOBI_STALL = 50  # CG iterations without a 10% improvement before a column freezes
 NYSTROM_STALL = 200
 F32_EPS = 1.2e-7  # the twin's float32 epsilon in the Nystrom shift floor
 _f32 = torch.float32
+
+
+def _exact_device_wanted() -> bool:
+    """``OISAT_EXACT_DEVICE=0`` opts out of the device tail (the host LAPACK
+    float64 solve then serves)."""
+    return os.environ.get("OISAT_EXACT_DEVICE", "1") != "0"
+
+
+def exact_max_cells(device, block: int = 1024) -> int:
+    """The largest padded cell count that the exact float64 branch takes on
+    ``device``.  Off CUDA, and under ``OISAT_EXACT_DEVICE=0`` (the host
+    solve), ``REFINE_MAX_CELLS``, so that both packages take the same branch
+    at every n.  On a CUDA card the largest multiple of ``block`` whose one
+    float64 N x N buffer takes at most ``EXACT_MEMORY_SHARE`` of the card's
+    total memory (``get_device_properties``, fixed for a card where its free
+    memory is not, so that every run takes the same branch), and never less
+    than ``REFINE_MAX_CELLS``: 72,704 on an 80 GB H100 (85.0e9 bytes)."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not _exact_device_wanted():
+        return REFINE_MAX_CELLS
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n = math.isqrt(int(EXACT_MEMORY_SHARE * total) // 8)
+    return max(REFINE_MAX_CELLS, n // block * block)
 
 
 def _unit_vectors(lat_deg, lon_deg, device) -> torch.Tensor:
@@ -250,6 +287,13 @@ def _lanczos_tridiag_batch(u3, sigma_b, sigma_o, q0, length_scale_km: float, blo
         return oin[:, None] * _b_matmat(u3, sigma_b, oin[:, None] * v, length_scale_km, block,
                                         mesh, cov_impl)
 
+    return _lanczos(cmat, q0, m)
+
+
+def _lanczos(cmat, q0, m: int):
+    """m steps of the Lanczos recurrence of the symmetric ``cmat``, one per
+    column of ``q0`` (N, K), all sharing each product.  Returns
+    (alpha (m, K), beta (m, K), norms (K,)) on ``q0``'s device."""
     norms = torch.sqrt(torch.sum(q0 * q0, dim=0))
     q_cur = q0 / torch.where(norms > 0, norms, 1.0)
     q_prev = torch.zeros_like(q_cur)
@@ -295,8 +339,6 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     of ``np.random.default_rng(seed)`` line up.  ``mesh`` shards every
     sweep and ``cov_impl`` picks its engine (see :func:`_b_matmat`).
     Returns the (R,) float64 curve."""
-    from scipy.linalg import eigh_tridiagonal
-
     mesh = _drop_single(mesh)
     if isinstance(u3_or_latlon, tuple):
         dev = resolve_device(device)
@@ -322,8 +364,7 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     valid = (bd > 0) if valid is None else (np.asarray(valid, bool) & (bd > 0))
     nv = max(int(valid.sum()), 1)
 
-    rng = np.random.default_rng(seed)
-    z = rng.choice([-1.0, 1.0], size=(n, n_probes)).astype(np.float32)
+    z = _slq_probes(n, n_probes, seed).astype(np.float32)
     z[~valid] = 0.0
     zd = z / np.where(valid, bd, 1.0)[:, None]  # D_bd^-1 z
     both = torch.as_tensor(np.concatenate([zd, z], axis=1).astype(np.float32), device=dev)
@@ -339,6 +380,20 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     alphas = alphas.cpu().numpy().astype(np.float64)  # (m, 2 n_probes)
     betas = betas.cpu().numpy().astype(np.float64)
     norms = norms.cpu().numpy().astype(np.float64)
+    return _slq_curve(alphas, betas, norms, regs, n_probes, nv)
+
+
+def _slq_probes(n: int, n_probes: int, seed: int) -> np.ndarray:
+    """(n, n_probes) float64 Rademacher probes of ``np.random.default_rng(seed)``,
+    the twin's draw."""
+    return np.random.default_rng(seed).choice([-1.0, 1.0], size=(n, n_probes))
+
+
+def _slq_curve(alphas, betas, norms, regs, n_probes: int, nv: int) -> np.ndarray:
+    """meanAK over ``regs`` from the Lanczos coefficients of the ``2 n_probes``
+    polarised start vectors (host float64 arrays): Gauss quadrature of each
+    tridiagonal, the polarised halves' difference, over ``nv`` cells."""
+    from scipy.linalg import eigh_tridiagonal
 
     regs = np.asarray(regs, np.float64)
     curve = np.zeros(regs.shape[0])
@@ -355,6 +410,38 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
         curve += (1.0 if j < n_probes else -1.0) * 0.25 * g
     curve /= n_probes
     return regs * curve / nv
+
+
+def mean_ak_curve_slq_dense(g, sigma_b, sigma_o, regs, block: int = 1024, n_probes: int = 8,
+                            m: int = 60) -> np.ndarray:
+    """:func:`mean_ak_curve_slq` in ``g``'s precision on the N x N
+    correlation ``g`` the exact branch holds, ``B = D_b g D_b``: every product
+    is ``g`` against scaled vectors, ``C v = w (g (w v))`` with
+    ``w = sigma_b / sigma_o``, so no second matrix is formed.  ``sigma_b``,
+    ``sigma_o``: host (N,) float64; cells with sigma_b = 0 stay off the
+    curve.  The probes are the sweep version's (seed 0), drawn over N padded
+    to ``block`` and cut to N (the padding's rows are zero there), with the
+    same steps and quadrature; ``g`` is read, not changed.  One copy to the
+    device and one pull.  Returns the (R,) float64 curve."""
+    dev, dt = g.device, g.dtype
+    n = g.shape[0]
+    sb = np.asarray(sigma_b, np.float64).ravel()
+    so = np.asarray(sigma_o, np.float64).ravel()
+    bd = sb ** 2
+    valid = bd > 0
+    nv = max(int(valid.sum()), 1)
+    z = _slq_probes(-(-max(n, 1) // block) * block, n_probes, 0)[:n]
+    z[~valid] = 0.0
+    zd = z / np.where(valid, bd, 1.0)[:, None]  # D_bd^-1 z
+    host = np.concatenate([np.stack([sb, sb / so, 1.0 / so], axis=1), zd, z], axis=1)
+    t = to_device(host, dev, dt)
+    sb_t, w, oin = t[:, 0:1], t[:, 1:2], t[:, 2:3]
+    bz = sb_t * (g @ (sb_t * t[:, 3:]))  # B [D_bd^-1 z | z]
+    a, b = bz[:, :n_probes], bz[:, n_probes:]
+    q0 = torch.cat([a + b, a - b], dim=1) * oin
+    alphas, betas, norms = _lanczos(lambda v: w * (g @ (w * v)), q0, m)
+    coef = to_host(torch.cat([alphas, betas, norms[None, :]])).astype(np.float64)
+    return _slq_curve(coef[:m], coef[m:2 * m], coef[2 * m], regs, n_probes, nv)
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +645,8 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
     distance-coloured probes at cluster representatives (``probe_sep_factor``
     x L apart, ``max_colors`` per CG chunk).  On the Nystrom branch ``refine``
     "auto" solves exactly in float64 on ``device`` at npad <=
-    ``REFINE_MAX_CELLS`` (``ops/oi_full._exact_tail_solve``: the exact
+    :func:`exact_max_cells` (``REFINE_MAX_CELLS`` off CUDA, the card's
+    memory limit on it; ``ops/oi_full._exact_tail_solve``: the exact
     posterior diagonal too; it raises instead of falling back, and
     ``OISAT_EXACT_DEVICE=0`` takes the host LAPACK solve) and keeps the
     float32 PCG and the Woodbury diagonal beyond; an int p runs the PCG and
@@ -619,7 +707,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
         k = max(LANES, int(np.ceil(k / LANES)) * LANES)
         solver = "pcg_f32"
         direct = diag_pack = None
-        if refine == "auto" and n <= REFINE_MAX_CELLS:
+        if refine == "auto" and n <= exact_max_cells(dev, block):
             # the exact float64 solve and posterior diagonal (no sketch)
             direct, diag_pack, f64_resid, solver = dense._exact_tail_solve(
                 sb_f64, so_f64, d64, lat, lon, L, dev, clock=clock)

@@ -28,12 +28,16 @@ The month path's spans: ``regrid`` (one granule) with ``regrid.plan``,
 ``regrid.domain_check``; ``assemble.ctm_fields``, ``assemble.h2d``,
 ``assemble.map`` and ``assemble.stack`` inside the fused month's ``assemble``
 stage; ``oi.scalar`` (the scalar OI: the curve, its pull, the knee) inside
-``step``; the fused month's stages.  Its counters:
+``step``; the fused month's stages, and the full OI's ``oi_full.*`` stages
+(on its exact float64 branch ``oi_full.curve``, ``oi_full.factor``,
+``oi_full.solve``, ``oi_full.diag``).  Its counters:
 ``h2d.bytes`` (every host->device copy, :func:`oisat_tpu_torch._device.to_device`),
 ``syncs`` (each time the host waits on the device, measurement's own
-synchronises aside), and ``regrid.plan_builds_device`` /
+synchronises aside), ``regrid.plan_builds_device`` /
 ``regrid.plan_builds_host`` (each regrid plan built on a cache miss, by the
-card's kernel or on the host).
+card's kernel or on the host), and ``oi_full.exact_cells`` /
+``oi_full.exact_bytes`` (the cells the full OI's exact float64 branch
+factors, and its N x N buffer's bytes).
 
 Usage::
 
