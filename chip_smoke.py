@@ -44,6 +44,11 @@ Phases (any failure raises, exit code != 0):
 5. Timings with CUDA events (kernel vs plain, ``oi()``, the month step and
    its AMF-recalculation part) and the host clock (regrid s/orbit, the
    driver's month, its host assembly).
+5a. One matched CTM slice of each scalar benchmark cell at its shape (72 x
+   361 x 576 float32) prepared as the month prepares it (raw copies, the
+   float64 columns derived on the card, MOPITT's stack mapped onto 1 deg):
+   OMI's partial column, MOPITT's air column and upscaled stack bitwise the
+   host numpy derivation; the card's time per slice beside the host's.
 6. The covariance kernel vs plain: B at n = 6,144 (the scan branch's
    largest) and 10,240 (the dense branch's largest) float32, and N = 1,
    ragged N around the 64-cell tile and all sigma = 0, within rtol 2e-4 /
@@ -653,6 +658,86 @@ def phase_swath_plan(dev, orbit, lon2d, lat2d) -> dict:
     return dict(launches=swath_plan.build_plan_structured_kernel.launches - launches, ms=ms,
                 plain_ms=plain_ms, call_ms=call_ms, bound_ms=bms, bound_by=by, targets=nt,
                 pixels=npix)
+
+
+def phase_ctm_slices(dev) -> dict:
+    """Phase 5a: one matched CTM slice of each scalar benchmark cell at its
+    shape (72 x 361 x 576 float32, the MERRA2-GMI grid), prepared as the
+    month prepares it: the raw arrays copied, the float64 columns derived on
+    the card, MOPITT's stack mapped onto the 1 deg grid.  Each derived
+    tensor must equal the host numpy derivation bitwise (OMI's partial
+    column; MOPITT's air column and the upscaled float64 stack).  Logs the
+    card's time per slice (CUDA events), the host's time for the same
+    derivation, and how many values a division by a Python number (torch's
+    reciprocal path on the card) would have moved."""
+    from oisat_tpu_torch import obs_operators as oo
+    from oisat_tpu_torch.datamodel import ctm_model
+    from oisat_tpu_torch.entry import merra2_gmi_grid
+    from oisat_tpu_torch.ops.vertical import GRAV, air_partial_column, partial_column
+
+    log("== phase 5a: the matched CTM slices derived on the card vs the host, bitwise")
+    lon2d, lat2d = merra2_gmi_grid()
+    rng = np.random.default_rng(5)
+    shape = (72,) + lat2d.shape
+    pmid = (rng.uniform(0.02, 1000.0, shape)).astype(np.float32)
+    prof = rng.lognormal(0.0, 3.0, shape).astype(np.float32)
+    dp = rng.uniform(0.001, 40.0, shape).astype(np.float32)
+    raw = (pmid, prof, dp)
+
+    t0 = time.perf_counter()
+    pc = partial_column(np.asarray(dp, np.float64), np.asarray(prof, np.float64))
+    host_pc_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    airpc = air_partial_column(np.asarray(dp, np.float64))
+    host_air_ms = 1e3 * (time.perf_counter() - t0)
+    fields = [torch.as_tensor(a).to(dev) for a in raw]
+    got = oo._amf_columns(*fields)
+    check(torch.equal(got[0], fields[0]) and got[1].dtype == torch.float64,
+          "OMI slice: pmid passes through, the partial column is float64")
+    check(np.array_equal(got[1].cpu().numpy(), pc), "OMI slice: the partial column derived "
+          "on the card is not the host's bitwise")
+    omi_ms = cuda_ms(lambda: oo._amf_columns(*fields), reps=5)
+    quotient = (fields[2].double() * fields[1].double()) / GRAV
+    moved = int((quotient.cpu().numpy() != np.asarray(dp, np.float64)
+                 * np.asarray(prof, np.float64) / GRAV).sum())
+    del got, quotient
+
+    ctm = ctm_model(lat2d, lon2d, [], prof, pmid, [], dp, "ECCOH", False)
+    lon1, lat1 = np.meshgrid(np.arange(-179.5, 180.0, 1.0), np.arange(-89.5, 90.0, 1.0))
+    gran = SimpleNamespace(ctm_upscaled_needed=True, longitude_center=lon1,
+                           latitude_center=lat1)
+    up = oo._ctm_to_sat_upscaler([ctm], gran, dev)
+    check(not up.needed, "MOPITT slice: the 0.5 deg CTM must be mapped onto the 1 deg grid")
+    t0 = time.perf_counter()
+    stack = np.concatenate([np.asarray(pmid, np.float64), np.asarray(prof, np.float64), airpc])
+    host_stack_ms = 1e3 * (time.perf_counter() - t0)
+    want = up.apply(torch.as_tensor(stack).to(dev)).split([72, 72, 72])
+    del stack
+    cols = oo._mopitt_columns(*fields)
+    check(np.array_equal(cols[2].cpu().numpy(), airpc), "MOPITT slice: the air column "
+          "derived on the card is not the host's bitwise")
+    got = oo._maybe_upscale([ctm], gran, cols, dev)
+    for name, g, w in zip(("pmid", "profile", "air column"), got, want):
+        check(g.dtype == torch.float64 and torch.equal(g.view(torch.int64), w.view(torch.int64)),
+              f"MOPITT slice: the upscaled {name} is not the host stack's bitwise")
+    del got, want, cols
+    mopitt_ms = cuda_ms(lambda: oo._maybe_upscale([ctm], gran, oo._mopitt_columns(*fields),
+                                                  dev), reps=5)
+    # the month's path whole: the three raw copies, the derivation, the map
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oo._prepared({}, [ctm], gran, 0, dev, lambda: raw, oo._mopitt_columns)
+    torch.cuda.synchronize()
+    prepared_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(a.nbytes for a in raw)
+    log(f"CTM slice {shape} float32: OMI partial column on the card {omi_ms:.3f} ms "
+        f"(host numpy {host_pc_ms:.1f} ms), bitwise the host's; MOPITT air column, float64 "
+        f"stack and map onto 1 deg {mopitt_ms:.3f} ms (host air column {host_air_ms:.1f} ms "
+        f"and stack {host_stack_ms:.1f} ms), bitwise; one MOPITT slice prepared end to end "
+        f"(3 raw copies, {nbytes / 1e6:.2f} MB) {prepared_ms:.1f} ms (host clock); a "
+        f"division by a Python number on the card moves {moved} of {pc.size} quotients")
+    return {"omi_ms": omi_ms, "mopitt_ms": mopitt_ms, "prepared_ms": prepared_ms,
+            "host_pc_ms": host_pc_ms, "reciprocal_moved": moved}
 
 
 def implied_factor(obj, sensor: str, grid) -> int:
@@ -2499,6 +2584,7 @@ def main() -> int:
     inputs, _ = oisatgmi._fused_inputs("amf", "OMI", [ctm], grans)
     torch.cuda.synchronize()
     assemble_s = time.perf_counter() - t0
+    phase_ctm_slices(dev)
     kw = dict(bias_offset=0.32, bias_slope=0.63)
     amf_ms = cuda_ms(lambda: _amf_recal_month(inputs), reps=3)
     step_ms = cuda_ms(lambda: full_month_step(inputs, curve_impl="kernel", **kw), reps=3)
@@ -2515,9 +2601,9 @@ def main() -> int:
     log(f"full_month_step ({inputs.vcd.shape[0]} granules, {inputs.sat_pmid.dtype}/"
         f"{inputs.ctm_pc.dtype} inputs): kernel engine {step_ms:.2f} ms, plain engine "
         f"{step_plain_ms:.2f} ms ({g_cells / (step_ms * 1e-3):.4e} granule-cells/s)")
-    log(f"month breakdown: host assembly (_fused_inputs: CTM matching, float64 partial "
-        f"columns, H2D, stacking) {assemble_s:.3f} s; in the step: AMF recalculation "
-        f"{amf_ms:.2f} ms, averaging + OI + diagnostics {step_ms - amf_ms:.2f} ms")
+    log(f"month breakdown: host assembly (_fused_inputs: CTM matching, raw H2D, float64 "
+        f"partial columns on the card, stacking) {assemble_s:.3f} s; in the step: AMF "
+        f"recalculation {amf_ms:.2f} ms, averaging + OI + diagnostics {step_ms - amf_ms:.2f} ms")
     log(f"ak_curve at the month's shape ({u.numel()} cells x {regs.numel()} factors, "
         f"{u.dtype}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, max_abs_err {month_err:.3e}")
     for key, (err, ms, pms, _) in kres.items():

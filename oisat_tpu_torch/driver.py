@@ -46,6 +46,7 @@ from oisat_tpu_torch.obs_operators import (
     _ctm_times,
     _daily_ctm_slice,
     _match_daily,
+    _mopitt_columns,
     _prepared,
     _time_collapsed,
     _water_partial_column,
@@ -63,7 +64,6 @@ from oisat_tpu_torch.ops.diagnostics import (
 )
 from oisat_tpu_torch.ops.oi import oi as oi_op
 from oisat_tpu_torch.ops.oi_full import oi_full
-from oisat_tpu_torch.ops.vertical import air_partial_column
 from oisat_tpu_torch.parallel.analysis import (
     MONTH_MAKERS,
     FullMonthInputs,
@@ -587,13 +587,13 @@ class oisatgmi:
                 ctm_pmid=stacked([it[1] for it in items]),
                 ctm_pc=stacked([it[2] for it in items])), full_month_step
 
-        def daily(host_fields):
+        def daily(host_fields, derive=None):
             """Each granule's prepared daily CTM slice: a list of tuples."""
             out = []
             for g in grans:
                 _, day = _match_daily(g.time, ctm_data, time_ctm)
                 out.append(_prepared(cache, ctm_data, g, day, device,
-                                     lambda day=day: host_fields(day)))
+                                     lambda day=day: host_fields(day), derive))
             return out
 
         if kind == "ssmis":
@@ -614,11 +614,7 @@ class oisatgmi:
                 pressure_weight=stack("pressure_weight"), vcd=stack("vcd"),
                 x_col=stack("x_col"), uncertainty=stack("uncertainty")), gosat_month_step
 
-        def mopitt_fields(day):
-            pmid, prof, dp = _daily_ctm_slice(ctm_data, day)
-            return [pmid, prof, air_partial_column(np.asarray(dp, np.float64))]
-
-        slices = daily(mopitt_fields)
+        slices = daily(lambda day: _daily_ctm_slice(ctm_data, day), _mopitt_columns)
         return MopittMonthInputs(
             ctm_pmid=stacked([s[0] for s in slices]),
             ctm_profile=stacked([s[1] for s in slices]),

@@ -6,10 +6,12 @@ amf_recal.py:121-185, ``ak_conv_mopitt`` ak_conv_mopitt.py:8-149,
 pwv_cal.py:7-101): the same call signature (list of CTM granules, list of
 gridded satellite granules, mutated in place and returned).  The CTM fields
 are host numpy; the granules' fields are tensors on one device (the output
-of the port's regrid).  Each distinct matched CTM slice is prepared once on
-the host, moved to the granules' device once (mapped onto the satellite grid
-there when the granule is flagged ``ctm_upscaled_needed``), and granules that
-share a shape signature run through one batched call of
+of the port's regrid).  Each distinct matched CTM slice is prepared once: its
+arrays are copied to the granules' device as the reader hands them over, the
+operator's float64 columns are derived from them there (bitwise the host's
+numpy, :func:`_prepared`), and they are mapped onto the satellite grid there
+when the granule is flagged ``ctm_upscaled_needed``.  Granules that share a
+shape signature run through one batched call of
 :mod:`oisat_tpu_torch.ops.vertical`.  The results are written back onto the
 granules as tensors on that device.
 
@@ -37,7 +39,7 @@ from oisat_tpu_torch.ops.weights import diag_threshold
 from oisat_tpu_torch.parallel.analysis import over_granule_chunks
 from oisat_tpu_torch.regridder import _geom_key, make_upscaler
 from oisat_tpu_torch.utils.lru import LockedLRU
-from oisat_tpu_torch.utils.profiling import span
+from oisat_tpu_torch.utils.profiling import count, span
 
 __all__ = ["amf_recal", "ak_conv_mopitt", "ak_conv_gosat", "pwv_calculator"]
 
@@ -97,7 +99,8 @@ def _amf_ctm_slice(ctm_data, day, hour):
 def _time_collapsed(ctm, names):
     """The named fields of one CTM day without a time axis: ECCOH and FREE
     carry none, GMI's sub-daily axis is averaged (reference
-    ak_conv_mopitt.py:59-77)."""
+    ak_conv_mopitt.py:59-77).  The average stays on the host: a ``nanmean``
+    on the card would not be bitwise numpy's."""
     if ctm.ctmtype in ("ECCOH", "FREE"):
         return tuple(np.squeeze(getattr(ctm, n)) for n in names)
     return tuple(np.squeeze(np.nanmean(getattr(ctm, n), axis=0)) for n in names)
@@ -130,24 +133,20 @@ def _ctm_to_sat_upscaler(ctm_data, granule, device):
 
 
 def _maybe_upscale(ctm_data, granule, fields, device):
-    """The host (L, H, W) (or single-level (H, W)) ``fields`` as tensors on
-    ``device``; mapped onto the satellite grid, in float64 and all stacked
-    through one upscaler call, when the granule is flagged."""
+    """The (L, H, W) (or single-level (H, W)) tensors ``fields`` on
+    ``device`` as they are, or, when the granule is flagged, mapped onto the
+    satellite grid: cast to float64 into one stack and mapped through one
+    upscaler call."""
     if not granule.ctm_upscaled_needed:
-        with span("assemble.h2d"):
-            return [h2d(f, device) for f in fields]
-    with span("assemble.h2d"):
-        stacks = [np.asarray(f, np.float64) for f in fields]
-        stacks = [s[None] if s.ndim == 2 else s for s in stacks]
-        whole = h2d(np.concatenate(stacks), device)
+        return fields
     with span("assemble.map"):
+        levels = [1 if f.ndim == 2 else f.shape[0] for f in fields]
+        whole = torch.empty((sum(levels),) + tuple(fields[0].shape[-2:]),
+                            dtype=torch.float64, device=device)
+        for part, f in zip(whole.split(levels), fields):
+            part.copy_(f.reshape(part.shape))  # the exact cast to float64
         out = _ctm_to_sat_upscaler(ctm_data, granule, device).apply(whole)
-    res, start = [], 0
-    for f, s in zip(fields, stacks):
-        r = out[start:start + s.shape[0]]
-        res.append(r[0] if np.ndim(f) == 2 else r)
-        start += s.shape[0]
-    return res
+    return [r[0] if f.ndim == 2 else r for r, f in zip(out.split(levels), fields)]
 
 
 def _slice_key(granule, matched):
@@ -159,31 +158,48 @@ def _slice_key(granule, matched):
     return matched
 
 
-def _prepared(cache: dict, ctm_data, granule, matched, device, host_fields):
-    """The device tensors of the CTM slice ``matched`` for ``granule``:
-    ``host_fields()`` (host numpy stacks) is evaluated, moved and upscaled
-    once per distinct slice and kept in ``cache``."""
+def _prepared(cache: dict, ctm_data, granule, matched, device, host_fields, derive=None):
+    """The device tensors of the CTM slice ``matched`` for ``granule``, made
+    once per distinct slice and kept in ``cache``: the host arrays of
+    ``host_fields()`` are copied as they are, ``derive`` (tensors ->
+    tensors; None keeps them) computes the operator's fields from them on
+    ``device``, and a flagged granule gets them upscaled.  The spans time the
+    host: ``assemble.ctm_fields`` the slicing and the derivation's launch,
+    ``assemble.h2d`` the copies."""
     key = _slice_key(granule, matched)
     if key not in cache:
         with span("assemble.ctm_fields"):
-            fields = host_fields()
+            arrays = host_fields()
+        with span("assemble.h2d"):
+            fields = [h2d(a, device) for a in arrays]
+        if derive is not None:
+            with span("assemble.ctm_fields"):
+                fields = derive(*fields)
+            count("assemble.slices_device")
         cache[key] = _maybe_upscale(ctm_data, granule, fields, device)
     return cache[key]
+
+
+def _amf_columns(pmid, profile, dp):
+    """(pmid, float64 gas partial column) of an AMF slice's tensors."""
+    return [pmid, partial_column(dp.to(torch.float64), profile.to(torch.float64))]
+
+
+def _mopitt_columns(pmid, profile, dp):
+    """(pmid, profile, float64 air partial column) of a MOPITT slice's
+    tensors.  The reference also builds and upscales the gas partial column
+    (ak_conv_mopitt.py:67,103) but never reads it: skipped, as in the twin."""
+    return [pmid, profile, air_partial_column(dp.to(torch.float64))]
 
 
 def _amf_one(ctm_data, granule, time_ctm, time_hour, device, cache: dict):
     """One granule's matched CTM fields on ``device``: (closest, pmid, pc,
     tropopause, has_trop).  The partial columns are computed in float64 on
-    the host; a granule without a tropopause gets zeros, which never mask a
-    level (pmid < 0 never holds)."""
+    the device; a granule without a tropopause gets zeros, which never mask
+    a level (pmid < 0 never holds)."""
     closest, day, hour = _match_amf(granule.time, ctm_data, time_ctm, time_hour)
-
-    def host_fields():
-        pmid, profile, dp = _amf_ctm_slice(ctm_data, day, hour)
-        return [np.asarray(pmid), partial_column(np.asarray(dp, np.float64),
-                                                 np.asarray(profile, np.float64))]
-
-    pmid, pc = _prepared(cache, ctm_data, granule, closest, device, host_fields)
+    pmid, pc = _prepared(cache, ctm_data, granule, closest, device,
+                         lambda: _amf_ctm_slice(ctm_data, day, hour), _amf_columns)
     has_trop = size(granule.tropopause) != 1
     trop = granule.tropopause if has_trop else torch.zeros_like(granule.vcd)
     return closest, pmid, pc, trop, has_trop
@@ -241,10 +257,11 @@ def amf_recal(ctm_data: list, sat_data: list):
     return sat_data
 
 
-def _daily_groups(ctm_data, sat_data, time_ctm, shape_field, host_fields):
+def _daily_groups(ctm_data, sat_data, time_ctm, shape_field, host_fields, derive=None):
     """Match every granule to its CTM day and group the granules by shape
     signature: {key: [(granule index, closest, *device slice tensors)]}.
-    ``host_fields(day)`` gives the host stacks of one day's slice."""
+    ``host_fields(day)`` gives the host arrays of one day's slice, ``derive``
+    the fields made from them on the device (:func:`_prepared`)."""
     cache: dict = {}
     groups: dict = {}
     for gi, granule in enumerate(sat_data):
@@ -252,7 +269,7 @@ def _daily_groups(ctm_data, sat_data, time_ctm, shape_field, host_fields):
             continue
         closest, day = _match_daily(granule.time, ctm_data, time_ctm)
         fields = _prepared(cache, ctm_data, granule, day, granule_device(granule),
-                           lambda: host_fields(day))
+                           lambda: host_fields(day), derive)
         key = (_shape(getattr(granule, shape_field)), _shape(granule.pressure_mid)
                if hasattr(granule, "pressure_mid") else None, _shape(fields[0]))
         groups.setdefault(key, []).append((gi, closest, *fields))
@@ -265,14 +282,9 @@ def ak_conv_mopitt(ctm_data: list, sat_data: list):
     through one batched call."""
     print("Averaging Kernel Conv begins...")
     time_ctm, _ = _ctm_times(ctm_data)
-
-    def host_fields(day):
-        pmid, profile, dp = _daily_ctm_slice(ctm_data, day)
-        # the reference also builds and upscales the gas partial column here
-        # (ak_conv_mopitt.py:67,103) but never reads it: skipped, as in the twin
-        return [pmid, profile, air_partial_column(np.asarray(dp, np.float64))]
-
-    for items in _daily_groups(ctm_data, sat_data, time_ctm, "vcd", host_fields).values():
+    groups = _daily_groups(ctm_data, sat_data, time_ctm, "vcd",
+                           lambda day: _daily_ctm_slice(ctm_data, day), _mopitt_columns)
+    for items in groups.values():
         grans = [sat_data[it[0]] for it in items]
         model_vcd, model_xcol = over_granule_chunks(
             ak_conv_mopitt_fields,
@@ -316,7 +328,8 @@ def ak_conv_gosat(ctm_data: list, sat_data: list):
 
 def _water_partial_column(ctm_data, day):
     """dp * q / g / 1e4 of one CTM day, time-collapsed (reference
-    pwv_cal.py:64-75)."""
+    pwv_cal.py:64-75).  Computed on the host, in the reader's precision: no
+    cell runs it, and it follows the host time-collapse."""
     dp, q = _time_collapsed(ctm_data[day], ("delta_p", "gas_profile"))
     return dp * q / 9.80665 / 10000.0
 

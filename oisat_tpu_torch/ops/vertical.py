@@ -29,16 +29,29 @@ GRAV = 9.80665
 N_A = 6.02214076e23
 
 
+def _div(x, d: float):
+    """``x / d`` as an IEEE quotient on every device.  torch divides a CUDA
+    tensor by a Python number as a product with the number's reciprocal,
+    which can be an ulp off numpy's quotient; a 0-dim divisor on the
+    tensor's own device takes the true division (and no copy)."""
+    if torch.is_tensor(x):
+        return x / torch.full((), d, dtype=x.dtype, device=x.device)
+    return x / d
+
+
 def partial_column(delta_p, profile_ppbv):
     """CTM gas partial column [1e15 molec/cm^2] from delta-p [hPa] and ppbv
-    (numpy arrays or tensors; reference amf_recal.py:51-56)."""
-    return delta_p * profile_ppbv / GRAV / MAIR * N_A * 1e-4 * 1e-15 * 100.0 * 1e-9
+    (numpy arrays or tensors; reference amf_recal.py:51-56).  The same IEEE
+    operations in the same order on either: float64 tensors give numpy's
+    float64 result bitwise, on the CPU and on the card."""
+    return _div(_div(delta_p * profile_ppbv, GRAV), MAIR) * N_A * 1e-4 * 1e-15 * 100.0 * 1e-9
 
 
 def air_partial_column(delta_p):
     """Air partial column [1e15 molec/cm^2] from delta-p [hPa] (numpy arrays
-    or tensors; reference ak_conv_mopitt.py:66)."""
-    return delta_p / GRAV / MAIR * N_A * 1e-4 * 1e-15 * 100.0
+    or tensors; reference ak_conv_mopitt.py:66), bitwise numpy's on any
+    device as :func:`partial_column`."""
+    return _div(_div(delta_p, GRAV), MAIR) * N_A * 1e-4 * 1e-15 * 100.0
 
 
 def _nan_like(x):

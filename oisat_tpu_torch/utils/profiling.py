@@ -35,7 +35,9 @@ stage; ``oi.scalar`` (the scalar OI: the curve, its pull, the knee) inside
 ``syncs`` (each time the host waits on the device, measurement's own
 synchronises aside), ``regrid.plan_builds_device`` /
 ``regrid.plan_builds_host`` (each regrid plan built on a cache miss, by the
-card's kernel or on the host), and ``oi_full.exact_cells`` /
+card's kernel or on the host), ``assemble.slices_device`` (each matched CTM
+slice whose operator fields were derived on the device), and
+``oi_full.exact_cells`` /
 ``oi_full.exact_bytes`` (the cells the full OI's exact float64 branch
 factors, and its N x N buffer's bytes).
 
