@@ -22,8 +22,9 @@ Phases (any failure raises, exit code != 0):
    equal.  Beside each time: the bound and the division floor (one MUFU
    reciprocal per valid term at 16 per SM per clock, at the card's maximum
    SM clock).
-3. ``oi()`` at 1440 x 2880 float32 with the kernel engine vs the plain one:
-   identical ``reg_index``, fields within rtol 1e-5; and ``oi()`` on a small
+3. ``oi()`` at 1440 x 2880 float32 (the kernel, picked by the card) vs the
+   same call with the plain curve on the card through ``oi``'s ``curve_fn``
+   hook: identical ``reg_index``, fields within rtol 1e-5; and ``oi()`` on a small
    float64 input against a literal numpy transcription of the reference
    (rtol 1e-10, knee exact).
 4. The month through ``oisat_tpu_torch.driver.oisatgmi.analyze_month_fused``:
@@ -32,9 +33,10 @@ Phases (any failure raises, exit code != 0):
    onto the global MERRA2-GMI grid (0.5 x 0.625 deg, 361 x 576 = 207,936
    cells), a 72-level CTM with 8 3-hourly snapshots.  The kernel's launch
    count over the regrid + month must be > 0, and every orbit's plan must
-   be built on the card by the swath plan kernel (``csrc/swath_plan.cu``);
-   the same month with the plain curve engine must give the identical
-   ``reg_index`` and fields within rtol 1e-5.
+   be built on the card by the swath plan kernel (``csrc/swath_plan.cu``).
+   Phase 5 holds the month step's OI against the same update with the plain
+   curve (the ``curve_fn`` hook) on the step's own averaged fields: the
+   identical ``reg_index`` (the driver month's) and fields within rtol 1e-5.
 4b. The swath plan kernel on one of phase 4's orbits against the 0.25 deg
    fine grid (1,037,519 targets), called as the regrid calls it: its plan
    bitwise equal to the host builder's (``plan_to_torch(build_plan_structured
@@ -43,7 +45,8 @@ Phases (any failure raises, exit code != 0):
    rate), the call end to end and the host build with its copy (host clock).
 5. Timings with CUDA events (kernel vs plain, ``oi()``, the month step and
    its AMF-recalculation part) and the host clock (regrid s/orbit, the
-   driver's month, its host assembly).
+   driver's month, its host assembly); the month curve's kernel vs plain on
+   its own ``u`` and the step's OI vs the plain curve's (phase 4).
 5a. One matched CTM slice of each scalar benchmark cell at its shape (72 x
    361 x 576 float32) prepared as the month prepares it (raw copies, the
    float64 columns derived on the card, MOPITT's stack mapped onto 1 deg):
@@ -66,13 +69,13 @@ Phases (any failure raises, exit code != 0):
    the gate, every orbit's plan built by the swath plan kernel, a finite
    posterior wherever prior
    and observation are, the kernel bitwise equal to the plain version and
-   the plain B bitwise symmetric on the month's own compacted cells, and
-   the same month with the plain covariance engine giving the identical
-   factor and fields within rtol 1e-9 (the tail never reads B; the factor
-   holds only while B is bitwise equal).  The driver's and ``oi_full``'s own stage times
-   (``stage_ms``: assembly, step, pull, compaction, covariance, eigh, the
-   scan's GEMMs, knee, tail, residual, ...) for the first run, the plain
-   run and a warm repeat, and the peak device memory.
+   the plain B bitwise symmetric on the month's own compacted cells (so
+   the plain version's month would pick the identical factor and fields:
+   the tail never reads B, and the factor holds only while B is bitwise
+   equal), and a warm repeat picking the identical factor.  The driver's
+   and ``oi_full``'s own stage times (``stage_ms``: assembly, step, pull,
+   compaction, covariance, eigh, the scan's GEMMs, knee, tail, residual,
+   ...) for the first run and the warm repeat, and the peak device memory.
 8. The MOPITT CO month: 30 daily L3 granules on the product's 1 degree grid
    (360 x 180 cells, 9 retrieval levels, the 10-row averaging kernel with
    the surface row first, ~20% missing), regridded with the MOPITT_CO
@@ -142,10 +145,9 @@ Phases (any failure raises, exit code != 0):
     ``resid_abs`` of the direct increment.  (c) The SLQ curve on phase 7's
     CONUS cells within rtol 0.04 of the dense scan's, and the Jacobi branch
     on a 64 x 64 one-degree window against the dense solve
-    (tests/test_oi_full.py's bounds).  (a), (b) and (c) run again with
-    ``cov_impl="plain"`` (torch-op sweeps): the same knee and branch, the
-    increments within the two solves' ``resid_abs`` where both converged,
-    13a's ``cg_resid`` within 2x the plain run's; both runs' stage times.
+    (tests/test_oi_full.py's bounds); both calls of (c) run again with every
+    sweep on the plain version (``_b_matmat``'s engine seam): the same SLQ
+    knee, the Jacobi fields within atol 1e-4.
     (d) The kernel against the plain engine at every sweep shape of these
     solves and the bench's: 64,512 cells with K = 1, 8, 16, 2,048, 11,264
     with K = 8 and 130 (block 1,024), 65,536 with K = 1 and 2,048 (block
@@ -193,9 +195,8 @@ Phases (any failure raises, exit code != 0):
     in every child.
 16. The port's bench (``oisat_tpu_torch.bench``): every row that writes no
     product files, once each with one repeat, each running its own check (a
-    row raises when it fails): the OI headline at 1440 x 2880 with the
-    kernel and with the plain curve engine, the curve phase at 4,147,200 x
-    99, the Kalman solve at 2,048 cells, both regrids and the pipelined one
+    row raises when it fails): the OI headline at 1440 x 2880, the curve
+    phase at 4,147,200 x 99, the Kalman solve at 2,048 cells, both regrids and the pipelined one
     over 2 orbits, the staged, fused and full-covariance months of 4 half
     orbits, one month of the year's four kinds (4 OMI orbits), the
     bandwidth OI at 1,536 x 3,072 and the matrix-free solve at 1,980 cells
@@ -265,7 +266,7 @@ COV_SIZES = (6144, 10240)  # the dense scan's and the dense solve's largest B
 COV_EDGE = (1, 63, 65, 1000, 6143)  # N = 1 and N off the 64-cell tile
 COV_RTOL = 2e-4  # + atol 1e-6 * max sigma^2: the CPU tests' bounds
 LENGTH_SCALE_KM = 300.0  # run/control.yml's length_scale_km
-FULL_RTOL = 1e-9  # kernel vs plain covariance engine, after the float64 tail
+FULL_RTOL = 1e-9  # two runs of a full-covariance month, after the float64 tail
 MONTH = ("2019-07-01", "2019-08-01")
 DRIVER_FIELDS = ("sat_averaged_vcd", "sat_averaged_error", "ctm_averaged_vcd", "aux1", "aux2",
                  "ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI")
@@ -386,20 +387,29 @@ def reference_oi_numpy(xa, y, sa, so, kneedle_index_np):
     return xa + inc, ak, inc, np.sqrt(sb), idx
 
 
+def plain_curve(sa, so, regs):
+    """The mean-AK curve from the plain version on the tensors' own device:
+    ``oi``'s ``curve_fn`` hook, to hold an update on the kernel against."""
+    from oisat_tpu_torch.ops.kernels.oi_scan import ak_curve_sums_plain
+    from oisat_tpu_torch.ops.oi import curve_of_shards
+
+    return curve_of_shards([sa], [so], regs, ak_curve_sums_plain)
+
+
 def phase_oi(dev, oi, kneedle_index_np):
-    log("== phase 3: oi() kernel engine vs plain engine")
+    log("== phase 3: oi() on the kernel vs the plain curve")
     fields = oi_fields(HEADLINE, seed=1)
     args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in fields]
-    rk = oi(*args, curve_impl="kernel")
-    rp = oi(*args, curve_impl="plain")
+    rk = oi(*args)
+    rp = oi(*args, curve_fn=plain_curve)
     check(int(rk.reg_index) == int(rp.reg_index),
           f"oi reg_index kernel {int(rk.reg_index)} vs plain {int(rp.reg_index)}")
     for name in ("xb", "averaging_kernel", "increment", "error"):
         a, b = getattr(rk, name).cpu().numpy(), getattr(rp, name).cpu().numpy()
         check(a.shape == HEADLINE, f"oi {name} shape {a.shape}")
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=0, equal_nan=True, err_msg=name)
-    ms = cuda_ms(lambda: oi(*args, curve_impl="kernel"), reps=10)
-    plain_ms = cuda_ms(lambda: oi(*args, curve_impl="plain"), reps=5)
+    ms = cuda_ms(lambda: oi(*args), reps=10)
+    plain_ms = cuda_ms(lambda: oi(*args, curve_fn=plain_curve), reps=5)
     cells_per_s = HEADLINE[0] * HEADLINE[1] / (ms * 1e-3)
     log(f"oi() {HEADLINE[0]}x{HEADLINE[1]} float32: reg_index {int(rk.reg_index)} "
         f"(factor {float(rk.reg_factor):.1f}) identical; kernel engine {ms:.4f} ms "
@@ -408,7 +418,7 @@ def phase_oi(dev, oi, kneedle_index_np):
     small = [f.astype(np.float64) for f in oi_fields((64, 96), seed=2)]
     small[1][0, :5] = -1.0  # the y < 0 clamp
     small[2][1, :5] = 0.0  # Sa == 0 -> NaN averaging kernel
-    res = oi(*(torch.as_tensor(a, device=dev) for a in small), curve_impl="kernel")
+    res = oi(*(torch.as_tensor(a, device=dev) for a in small))
     ref = reference_oi_numpy(*small, kneedle_index_np)
     check(int(res.reg_index) == ref[4], "small oi knee differs from the numpy reference")
     for name, want in zip(("xb", "averaging_kernel", "increment", "error"), ref[:4]):
@@ -578,16 +588,6 @@ def phase_full_month(dev, cov, oi_scan):
         f"{p_ms:.4f} ms, bound {bms:.4f} ms ({by}), max_abs_err {cov_err:.3e} "
         f"(bitwise equal to plain)")
 
-    ref, _, ref_s, ref_ms = full_month(reader, dev, cov_impl="plain")
-    check(ref.oi_diagnostics["reg"] == diag["reg"],
-          f"full month factor kernel {diag['reg']} vs plain {ref.oi_diagnostics['reg']}")
-    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI",
-                 "sat_averaged_vcd", "ctm_averaged_vcd"):
-        np.testing.assert_allclose(getattr(obj, name), getattr(ref, name), rtol=FULL_RTOL,
-                                   atol=0, equal_nan=True, err_msg=name)
-    log(f"full month: the plain covariance engine gives the identical factor and "
-        f"fields (rtol {FULL_RTOL:g})")
-    log_stages("full month, plain engine (warm)", ref_ms, ref_s)
     again, _, again_s, again_ms = full_month(reader, dev)
     check(again.oi_diagnostics["reg"] == diag["reg"], "a second kernel-engine run "
           f"picked factor {again.oi_diagnostics['reg']} instead of {diag['reg']}")
@@ -1383,6 +1383,23 @@ def knees_picked():
 
 
 @contextlib.contextmanager
+def plain_sweeps():
+    """Every B.V sweep of the matrix-free solves on the plain version while
+    inside, the card's tensors included: the default of ``_b_matmat``'s
+    engine seam, the one the CPU tests substitute."""
+    from oisat_tpu_torch.ops import oi_full_matfree as matfree
+    from oisat_tpu_torch.ops.kernels.b_matmat import b_matmat_plain
+
+    defaults = matfree._b_matmat.__kwdefaults__
+    real = defaults["engine"]
+    defaults["engine"] = b_matmat_plain
+    try:
+        yield
+    finally:
+        defaults["engine"] = real
+
+
+@contextlib.contextmanager
 def jax_exact_limit():
     """The exact float64 branch held to the JAX package's REFINE_MAX_CELLS
     while inside, as on a card too small for a larger one, so that a month
@@ -1416,35 +1433,6 @@ def stage_split(stage_ms: dict) -> str:
                       if k.startswith("oi_full."))
 
 
-def hold_engines(what: str, kern: dict, plain: dict, knees: tuple, inc: tuple) -> None:
-    """The sweep kernel's month against the plain engine's on the same
-    inputs: the same knee and branch; where both converged, increments
-    within the sum of the two solves' field-error bounds (each is within
-    its ``resid_abs`` of the exact increment); the kernel's ``cg_resid``
-    within 2x the plain run's."""
-    from oisat_tpu_torch.bench import _converged
-
-    def converged(info):
-        return _converged(info["cg_resid"], info["resid_abs"], info["stat_norm"])
-
-    check(knees[0] == knees[1], f"{what}: knee {knees[0]} with the kernel, {knees[1]} plain")
-    for key in ("solver", "precond"):
-        check(kern[key] == plain[key], f"{what}: {key} {kern[key]} vs plain {plain[key]}")
-    gap = float(np.linalg.norm(inc[0] - inc[1]))
-    both = converged(kern) and converged(plain)
-    if both:
-        bound = kern["resid_abs"] + plain["resid_abs"]
-        check(gap <= bound, f"{what}: increments {gap:.3e} apart, over {bound:.3e}")
-    check(kern["cg_resid"] <= 2.0 * plain["cg_resid"] or kern["cg_resid"] <= 1e-6,
-          f"{what}: cg_resid {kern['cg_resid']:.3e} vs plain {plain['cg_resid']:.3e}")
-    log(f"{what}: kernel vs plain sweep engine: the same knee ({knees[0]}), solver "
-        f"{kern['solver']}, precond {kern['precond']}; cg_iters {kern['cg_iters']} / "
-        f"{plain['cg_iters']}, cg_resid {kern['cg_resid']:.3e} / {plain['cg_resid']:.3e}, "
-        f"resid_abs {kern['resid_abs']:.3e} / {plain['resid_abs']:.3e}; "
-        f"||inc_kernel - inc_plain|| {gap:.3e}"
-        + ("" if both else " (not both converged: not held to the bounds)"))
-
-
 def phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, grid):
     """Phase 13a: phase 8's staged MOPITT session (a copy: phases 11 and 12
     read the original) through ``oi("MOPITT", method="full")``: 64,261 valid
@@ -1454,10 +1442,9 @@ def phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, grid):
     (k = 2,048), the Woodbury diagonal and the
     sampled float64 residual, every sweep on ``b_matmat.cu``.  A warm
     repeat through ``oi_full`` gives its stage split, the same solve and
-    bitwise-equal fields; the same cells through ``oi_full(cov_impl=
-    "plain")`` (torch-op sweeps) give the same knee and branch.  Returns the
-    padded cells (``oi_full.Padded``) for the sweep's timing and the
-    kernel's launches on the main path."""
+    bitwise-equal fields.  Returns the padded cells (``oi_full.Padded``),
+    on which phase 13d holds the kernel against the plain version at every
+    sweep width of this solve, and the kernel's launches on the main path."""
     from oisat_tpu_torch.ops.oi_full import compact, oi_full, pad_for_matfree
 
     log("== phase 13: the matrix-free full OI (L = 300 km)")
@@ -1516,18 +1503,6 @@ def phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt, grid):
         "the warm repeat bitwise equal")
     log_matfree("13a MOPITT month", d, first_s, warm_s, warm_ms, peak_gb, "WARNING" in said,
                 float(grid[knees[0]]))
-    plain_ms: dict = {}
-    torch.cuda.reset_peak_memory_stats()
-    with knees_picked() as plain_knees:
-        t0 = time.perf_counter()
-        plain = quietly(oi_full, *inputs, LENGTH_SCALE_KM, regularization_on=True,
-                        device=dev, cov_impl="plain", stage_ms=plain_ms)[0]
-        plain_s = time.perf_counter() - t0
-    log(f"13a plain sweep engine: {plain_s:.3f} s (host clock); oi_full = "
-        f"{stage_split(plain_ms)} ms; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    hold_engines("13a", warm.info, plain.info, (warm_knees[0], plain_knees[0]),
-                 (warm.increment[both], plain.increment[both]))
     return pv, launches
 
 
@@ -1539,10 +1514,9 @@ def phase_matfree_north_america(dev, oi_scan, cov, sweep):
     knee of the float64 SLQ curve and the exact solve on the card, with no
     sweep on ``b_matmat.cu``.  ``oi_full_matfree(refine=0)`` (the float32 Nystrom
     PCG) on the same compacted inputs and factor lands within twice its own
-    ``resid_abs`` of the direct increment; the month with
-    ``cov_impl="plain"`` picks the same knee and branch.  Returns the
-    padded cells for phase 14d's sweep and the sweep kernel's launches on
-    the main path."""
+    ``resid_abs`` of the direct increment.  Returns the padded cells for
+    phases 13d's and 14d's sweeps and the sweep kernel's launches on the
+    main path."""
     from oisat_tpu_torch.entry import NORTH_AMERICA, synthetic_regional_month
     from oisat_tpu_torch.ops.oi_full import (DENSE_SCAN_MAX_CELLS, DEVICE_EXACT_RESID_GATE,
                                              REFINE_MAX_CELLS, compact, oi_full_matfree,
@@ -1598,12 +1572,6 @@ def phase_matfree_north_america(dev, oi_scan, cov, sweep):
     log(f"13b first call: oi_full = {stage_split(first_ms)} ms; analyze_month_fused stages "
         + " + ".join(
         f"{k} {v:.2f}" for k, v in first_ms.items() if "." not in k) + " ms")
-    with knees_picked() as plain_knees:
-        plain, _, plain_s, plain_ms = full_month(reader, dev, cov_impl="plain")
-    log(f"13b plain sweep engine: {plain_s:.3f} s (host clock); oi_full = "
-        f"{stage_split(plain_ms)} ms")
-    hold_engines("13b", d, plain.oi_diagnostics, (knees[0], plain_knees[0]),
-                 (obj.increment_OI[both], plain.increment_OI[both]))
 
     # the float32 Nystrom PCG on the same compacted inputs and factor
     t0 = time.perf_counter()
@@ -1625,10 +1593,11 @@ def phase_matfree_vs_dense(dev, full, grid, sweep):
     """Phase 13c: (i) the SLQ curve on phase 7's compacted CONUS cells against
     the dense scan's curve (rtol 0.04; the SLQ and dense knees are logged,
     not held: that regime's knee is rounding-sensitive), and the same curve
-    with the plain sweep engine, whose knee must be the kernel's; (ii) the
-    Jacobi branch against the dense solve on a 64 x 64 one-degree window with
-    bench.bench_matfree's mild fields (tests/test_oi_full.py's bounds), with
-    both sweep engines, within atol 1e-4 of each other.  Returns the window's
+    with every sweep on the plain version (:func:`plain_sweeps`), whose knee
+    must be the kernel's; (ii) the Jacobi branch against the dense solve on a
+    64 x 64 one-degree window with bench.bench_matfree's mild fields
+    (tests/test_oi_full.py's bounds), and the same solve on the plain sweeps
+    within atol 1e-4 of it.  Returns the window's
     inputs and its Jacobi result for phase 14d and the sweep kernel's
     launches."""
     from oisat_tpu_torch.ops.knee import kneedle_index_np
@@ -1645,8 +1614,9 @@ def phase_matfree_vs_dense(dev, full, grid, sweep):
     slq_s = time.perf_counter() - t0
     launches = sweep.b_matmat_kernel.launches
     t0 = time.perf_counter()
-    slq_plain = mean_ak_curve_slq((cp.lat, cp.lon), cp.sb, cp.so, grid, LENGTH_SCALE_KM,
-                                  n_probes=64, device=dev, cov_impl="plain")
+    with plain_sweeps():
+        slq_plain = mean_ak_curve_slq((cp.lat, cp.lon), cp.sb, cp.so, grid, LENGTH_SCALE_KM,
+                                      n_probes=64, device=dev)
     slq_plain_s = time.perf_counter() - t0
     check(kneedle_index_np(grid, slq) == kneedle_index_np(grid, slq_plain),
           "13c: the SLQ knee moved with the plain sweep engine")
@@ -1679,8 +1649,9 @@ def phase_matfree_vs_dense(dev, full, grid, sweep):
     jac_s = time.perf_counter() - t0
     launches += sweep.b_matmat_kernel.launches - before
     t0 = time.perf_counter()
-    plain = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi", probe_sep_factor=6.0,
-                            cg_tol=1e-7, device=dev, cov_impl="plain")
+    with plain_sweeps():
+        plain = oi_full_matfree(*args, LENGTH_SCALE_KM, precond="jacobi",
+                                probe_sep_factor=6.0, cg_tol=1e-7, device=dev)
     plain_s = time.perf_counter() - t0
     check(plain[4]["precond"] == info["precond"] == "jacobi", "13c: the Jacobi branch")
     for name, a, b in zip(("xb", "ak", "increment", "err"), (xb, ak, inc, err), plain[:4]):
@@ -1743,15 +1714,15 @@ def sweep_case(dev, sweep, lat, lon, sb, k: int, block: int, what: str) -> dict:
     check(err_k <= 2.0 * err_p, f"{what}: kernel {err_k:.3e} from float64, plain {err_p:.3e}")
     del got, again, want, ref, dv
     out = {}
-    for impl in ("kernel", "plain"):
+    for name, engine in (("kernel", sweep.b_matmat_kernel), ("plain", sweep.b_matmat_plain)):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block, impl=impl)
+        _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block, engine=engine)
         torch.cuda.synchronize()
-        out[f"{impl}_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-        out[f"{impl}_ms"] = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block,
-                                                      impl=impl), reps=3)
+        out[f"{name}_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[f"{name}_ms"] = cuda_ms(lambda: _b_matmat(u3, sbt, v, LENGTH_SCALE_KM, block,
+                                                      engine=engine), reps=3)
     out["library_ms"] = sweep_library_ms(u3, sbt[:, None] * v, block) if k > 32 else None
     bms, by = b_matmat_bound(n, k)
     out.update(cells=n, k=k, block=block, err=err, err_f64=err_k, plain_err_f64=err_p,
@@ -1943,11 +1914,11 @@ def phase_mesh_month(inputs, step, kw, step_ms, oi_scan, regs_np, mesh, what: st
     torch.cuda.synchronize()
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    full_month_step(inputs, curve_impl="kernel", **kw)
+    full_month_step(inputs, **kw)
     torch.cuda.synchronize()
     step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    fn, shard = make_full_month_step(mesh, curve_impl="kernel", **kw)
+    fn, shard = make_full_month_step(mesh, **kw)
     sharded = shard(inputs)
     one_card = len(set(mesh.flat_devices())) == 1
     if one_card:
@@ -2391,8 +2362,6 @@ def phase_bench(dev, oi_scan, cov, sweep) -> tuple:
 
     rows = [curve,
             bench.bench_oi(reps=10, repeats=1, device=dev),
-            bench.bench_oi(curve_impl="plain", metric_name="oi_analysis_throughput_plain",
-                           reps=10, repeats=1, device=dev),
             bench.bench_kalman(2048, reps=1, repeats=1, device=dev),
             *bench.regrid_rows(orbits=2, repeats=1, device=dev),
             bench.bench_regrid_pipelined(orbits=2, repeats=1, device=dev),
@@ -2564,19 +2533,7 @@ def main() -> int:
         f"OmA {diag['oma_mean']:+.4f}/{diag['oma_rms']:.4f} chi2 {diag['chi2']:.4f}")
     log(f"month: analyze_month_fused {month_s:.3f} s (host clock, incl. CTM matching "
         f"and the H2D of the matched slices); peak device memory {peak_gb:.2f} GB")
-
-    ref = oisatgmi()
-    ref.reader_obj = obj.reader_obj
-    ref_out = ref.analyze_month_fused("OMI", "NO2", "2019-07-01", "2019-08-01",
-                                      curve_impl="plain")
-    check(int(ref_out.oi.reg_index) == reg_index,
-          f"month reg_index kernel {reg_index} vs plain {int(ref_out.oi.reg_index)}")
-    for name in ("ctm_averaged_vcd_corrected", "ak_OI", "increment_OI", "error_OI",
-                 "sat_averaged_vcd", "ctm_averaged_vcd"):
-        np.testing.assert_allclose(getattr(obj, name), getattr(ref, name), rtol=1e-5,
-                                   atol=0, equal_nan=True, err_msg=name)
-    log("month: plain curve engine gives the identical reg_index and fields (rtol 1e-5)")
-    del ref_out, out
+    del out
     plan_check = phase_swath_plan(dev, orbits[0], lon2d, lat2d)
 
     log("== phase 5: timings")
@@ -2587,20 +2544,32 @@ def main() -> int:
     phase_ctm_slices(dev)
     kw = dict(bias_offset=0.32, bias_slope=0.63)
     amf_ms = cuda_ms(lambda: _amf_recal_month(inputs), reps=3)
-    step_ms = cuda_ms(lambda: full_month_step(inputs, curve_impl="kernel", **kw), reps=3)
-    step_plain_ms = cuda_ms(lambda: full_month_step(inputs, curve_impl="plain", **kw), reps=3)
+    step_ms = cuda_ms(lambda: full_month_step(inputs, **kw), reps=3)
     step = full_month_step(inputs, **kw)
     xa = step.ctm_vcd
-    u, valid = curve_inputs((xa * 50.0 / 100.0) ** 2, step.sat_error ** 2)
+    sa, so = (xa * 50.0 / 100.0) ** 2, step.sat_error ** 2
+    u, valid = curve_inputs(sa, so)
     u = u.reshape(-1).contiguous()
     regs = torch.as_tensor(regs_np, dtype=u.dtype, device=dev)
     month_err, _, _ = compare_curve(u, regs, int(valid.sum()), oi_scan, "month curve")
+    # the step's OI against the same update with the plain curve on its fields
+    rp = oi(xa, step.sat_vcd, sa, so, curve_fn=plain_curve)
+    check(int(step.oi.reg_index) == int(rp.reg_index) == reg_index,
+          f"month reg_index: step {int(step.oi.reg_index)}, plain {int(rp.reg_index)}, "
+          f"driver month {reg_index}")
+    for name in ("xb", "averaging_kernel", "increment", "error"):
+        np.testing.assert_allclose(getattr(step.oi, name).cpu().numpy(),
+                                   getattr(rp, name).cpu().numpy(), rtol=1e-5, atol=0,
+                                   equal_nan=True, err_msg=f"month {name}")
+    del rp
+    log("month: the step's OI and the same update on the plain curve give the identical "
+        "reg_index (the driver month's) and fields (rtol 1e-5)")
     k_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_kernel(u, regs), reps=50)
     p_ms = cuda_ms(lambda: oi_scan.ak_curve_sums_plain(u, regs), reps=10)
     g_cells = int(np.prod(inputs.vcd.shape))
     log(f"full_month_step ({inputs.vcd.shape[0]} granules, {inputs.sat_pmid.dtype}/"
-        f"{inputs.ctm_pc.dtype} inputs): kernel engine {step_ms:.2f} ms, plain engine "
-        f"{step_plain_ms:.2f} ms ({g_cells / (step_ms * 1e-3):.4e} granule-cells/s)")
+        f"{inputs.ctm_pc.dtype} inputs): {step_ms:.2f} ms "
+        f"({g_cells / (step_ms * 1e-3):.4e} granule-cells/s)")
     log(f"month breakdown: host assembly (_fused_inputs: CTM matching, raw H2D, float64 "
         f"partial columns on the card, stacking) {assemble_s:.3f} s; in the step: AMF "
         f"recalculation {amf_ms:.2f} ms, averaging + OI + diagnostics {step_ms - amf_ms:.2f} ms")
@@ -2651,12 +2620,12 @@ def main() -> int:
         phase_mesh_month(inputs, step, kw, step_ms, oi_scan, regs_np,
                          make_mesh(min(4, n_cards)), "14f (real cards)")
     # the month's stacked inputs (~20 GB) go before the job runner repeats it
-    del inputs, step, xa, u, valid
+    del inputs, step, xa, sa, so, u, valid
     torch.cuda.empty_cache()
     job_paths = {"job_omi_fused_month": phase_job_omi(dev, oi_scan, cov, obj, month_s,
                                                       reg_index, regs_np)}
     # the global month's granules are not needed again
-    del grans, obj, ref
+    del grans, obj
     torch.cuda.empty_cache()
     cov_times = phase_covariance(dev, cov)
     full = phase_full_month(dev, cov, oi_scan)

@@ -36,8 +36,10 @@ from the twin, and why:
   do;
 * ``bench.py``'s link probe and marginal-cost timer, its compile census and
   the affine pressure carrier have no counterpart (ROADMAP "Do not port");
-* the XLA curve row is ``oi_analysis_throughput_plain`` (the plain PyTorch
-  curve), the Pallas curve row ``oi_curve_phase_kernel`` (``ak_curve.cu``);
+* the XLA curve row has no twin (the curve's engine is picked by the
+  device, not by the caller), the Pallas curve row is
+  ``oi_curve_phase_kernel`` (``ak_curve.cu``, with the plain version's time
+  beside it);
 * the bandwidth row's fields are drawn on the card from a seeded
   ``torch.Generator``, not ``jax.random``;
 * ``--all`` also runs the year (``bench.py --year`` only), and runs the
@@ -302,21 +304,20 @@ def _reference_oi(H, W):
     return ref, time.perf_counter() - t0
 
 
-def bench_oi(curve_impl="auto", metric_name="oi_analysis_throughput", H=1440, W=2880,
-             reps=100, repeats=rl.MIN_REPEATS, device="cuda") -> dict:
+def bench_oi(H=1440, W=2880, reps=100, repeats=rl.MIN_REPEATS, device="cuda") -> dict:
     """bench.py ``main``: ``ops.oi.oi`` on ``make_fields(H, W)`` float32
     (4,147,200 cells), grid-cells/s from the median of CUDA-event estimates
     of ``reps`` calls; ``vs_baseline`` against the float64 NumPy reference
     on the host.  Checks: the reference's knee, the same NaN cells, fields
-    within ``OI_RTOL``.  ``curve_impl="plain"`` is the twin of the XLA-curve
-    row."""
+    within ``OI_RTOL``."""
+    metric_name = "oi_analysis_throughput"
     dev = resolve_device(device)
     cells = H * W
     ref, t_np = _reference_oi(H, W)
     host = make_fields(H, W)
     fields = [torch.as_tensor(f, device=dev) for f in host]
     launches = oi_scan.ak_curve_sums_kernel.launches
-    out = oi(*fields, curve_impl=curve_impl)
+    out = oi(*fields)
     launches = oi_scan.ak_curve_sums_kernel.launches - launches
     knee = int(out.reg_index)
     _check(knee == ref[4], f"{metric_name}: knee {knee}, the float64 reference's {ref[4]}")
@@ -326,13 +327,13 @@ def bench_oi(curve_impl="auto", metric_name="oi_analysis_throughput", H=1440, W=
         rel = np.abs((xb - ref[0]) / np.where(np.abs(ref[0]) > 1e-12, ref[0], 1.0))
     agree = float(np.nanmax(rel))
     _check(agree <= OI_RTOL, f"{metric_name}: xb {agree:.3e} from the float64 reference")
-    stats = rl.median_ms(lambda: oi(*fields, curve_impl=curve_impl), reps, repeats, dev)
+    stats = rl.median_ms(lambda: oi(*fields), reps, repeats, dev)
     ms = stats["median"]
     _, _, sa, so = host
     n_valid = int((np.isfinite(sa) & (sa != 0) & ~np.isnan(so)).sum())
     nfac = regularization_grid().size
     return _emit(metric_name, cells / (ms * 1e-3), "grid-cells/sec", t_np / (ms * 1e-3), {
-        "grid": [H, W], "cells": cells, "valid_cells": n_valid, "curve_impl": curve_impl,
+        "grid": [H, W], "cells": cells, "valid_cells": n_valid,
         "kernel_launches_per_call": launches, **_timing(stats, "ms"),
         "cells_per_s_range": [cells / (stats["max"] * 1e-3), cells / (stats["min"] * 1e-3)],
         "reps_per_estimate": reps, "numpy_ms": t_np * 1e3, "knee": knee,
@@ -395,7 +396,8 @@ def bench_kalman(n=8192, reps=5, repeats=rl.MIN_REPEATS, device="cuda") -> dict:
     args = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in kalman_inputs(n)]
     xa, y, sigb, sigo, lat, lon = args
     b_auto = cov.build_covariance(lat, lon, sigb, 300.0, device=dev)
-    b_plain = cov.build_covariance(lat, lon, sigb, 300.0, device=dev, impl="plain")
+    b_plain = cov.build_covariance_plain(cov.radians_f32(lat, dev), cov.radians_f32(lon, dev),
+                                         sigb, 300.0)
     _check(torch.equal(b_auto, b_plain), "kalman: the covariance kernel's B is not the plain B")
     del b_auto, b_plain
     launches = cov.build_covariance_kernel.launches
@@ -1105,8 +1107,6 @@ def run_all(device="cuda") -> list:
     """Every row in bench.py ``run_all``'s order, then the year; the three
     file rows where :func:`file_rows_runnable`."""
     lines = [bench_oi(device=device),
-             bench_oi(curve_impl="plain", metric_name="oi_analysis_throughput_plain",
-                      device=device),
              bench_curve_phase(device=device),
              bench_kalman(2048, device=device),
              bench_kalman(8192, device=device)]

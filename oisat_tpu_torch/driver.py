@@ -270,8 +270,7 @@ class oisatgmi:
         clock.mark("bias_correct")
 
     def oi(self, sensor: str, error_ctm=50.0, method="scalar", length_scale_km=300.0,
-           desroziers_iterations=0, desroziers_bins=1, curve_impl="auto",
-           cov_impl="auto", mesh=None):
+           desroziers_iterations=0, desroziers_bins=1, mesh=None):
         """The analysis update on the averaged fields.
 
         ``method="scalar"`` is the reference's per-cell update with the
@@ -285,20 +284,17 @@ class oisatgmi:
         re-run the update that many times; the diagnosed scales land in
         ``oi_diagnostics``.  ``desroziers_bins`` > 1 estimates them per
         latitude band: the per-cell scale maps are then kept as
-        ``desroziers_sa_scale_map`` / ``desroziers_so_scale_map``.
-        ``curve_impl`` / ``cov_impl`` pick the scalar OI's curve engine and
-        the full OI's covariance engine.  ``mesh``: the scalar OI runs over
-        the mesh's grid shards (one curve launch per shard, one knee), the
-        full OI's matrix-free sweeps over all of its positions."""
+        ``desroziers_sa_scale_map`` / ``desroziers_so_scale_map``.  ``mesh``:
+        the scalar OI runs over the mesh's grid shards (one curve launch per
+        shard, one knee), the full OI's matrix-free sweeps over all of its
+        positions."""
         clock = self._clock()
         self._oi_impl(sensor, error_ctm, method, length_scale_km,
-                      desroziers_iterations, desroziers_bins, curve_impl, cov_impl,
-                      mesh=mesh)
+                      desroziers_iterations, desroziers_bins, mesh=mesh)
         clock.mark("oi")
 
     def _oi_impl(self, sensor, error_ctm, method="scalar", length_scale_km=300.0,
-                 desroziers_iterations=0, desroziers_bins=1, curve_impl="auto",
-                 cov_impl="auto", clock=None, mesh=None):
+                 desroziers_iterations=0, desroziers_bins=1, clock=None, mesh=None):
         if method not in ("scalar", "full"):
             raise ValueError(f"method must be 'scalar' or 'full', got {method!r}")
         # a previous run's binned scale maps must not outlive it on this object
@@ -311,13 +307,11 @@ class oisatgmi:
         device = self._device()
         if method == "full":
             self._oi_full(sensor, error_ctm, length_scale_km, iterations, nb, bins,
-                          device, cov_impl, clock, mesh)
+                          device, clock, mesh)
         else:
-            self._oi_scalar(sensor, error_ctm, iterations, nb, bins, device, curve_impl,
-                            mesh)
+            self._oi_scalar(sensor, error_ctm, iterations, nb, bins, device, mesh)
 
-    def _oi_scalar(self, sensor, error_ctm, iterations, nb, bins, device, curve_impl,
-                   mesh=None):
+    def _oi_scalar(self, sensor, error_ctm, iterations, nb, bins, device, mesh=None):
         """The scalar OI with its Desroziers loop on ``device``: one push of
         (xa, y, sigma_o), one pull of the four fields, the scale maps when
         binned, and a plane of scalars."""
@@ -326,7 +320,7 @@ class oisatgmi:
                                    np.asarray(self.sat_averaged_error)]), device)
         sa = (xa * error_ctm / 100.0) ** 2
         so = err**2
-        res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl, mesh=mesh)
+        res = oi_op(xa, y, sa, so, regularization_on=True, mesh=mesh)
         # every moment sees the innovation the OI assimilated (its y < 0 -> 0)
         y_clip = torch.where(y < 0, torch.zeros_like(y), y)
         totals = []
@@ -339,8 +333,7 @@ class oisatgmi:
                 sa_step, so_step = _desroziers_step(xa, y_clip, res.xb, sa, so, bins_t, nb)
                 sa, so = sa * sa_step, so * so_step
                 sa_total, so_total = sa_total * sa_step, so_total * so_step
-                res = oi_op(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl,
-                            mesh=mesh)
+                res = oi_op(xa, y, sa, so, regularization_on=True, mesh=mesh)
             totals = [sa_total, so_total]
         st = innovation_stats(xa, y_clip, res.xb, sa, so)
         fields = [res.xb, res.averaging_kernel, res.increment, res.error]
@@ -387,7 +380,7 @@ class oisatgmi:
                 sat.longitude_center)
 
     def _oi_full(self, sensor, error_ctm, length_scale_km, iterations, nb, bins,
-                 device, cov_impl, clock=None, mesh=None):
+                 device, clock=None, mesh=None):
         """The ``method == "full"`` branch of the JAX ``_oi_impl``: the
         full-covariance OI with the regularization scan, re-solved after
         each Desroziers pass with the rescaled error standard deviations
@@ -398,8 +391,8 @@ class oisatgmi:
 
         def solve():
             return oi_full(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km,
-                           regularization_on=True, device=device, cov_impl=cov_impl,
-                           stage_ms=clock.out, mesh=mesh)
+                           regularization_on=True, device=device, stage_ms=clock.out,
+                           mesh=mesh)
 
         def t64(a):
             return h2d(np.asarray(a, np.float64), device)
@@ -445,8 +438,8 @@ class oisatgmi:
     def analyze_month_fused(self, sensor: str, gasname: str, startdate: str,
                             enddate: str, error_ctm=50.0, weighting=None,
                             save_daily=None, oi_method="scalar", length_scale_km=300.0,
-                            desroziers_iterations=0, desroziers_bins=1,
-                            curve_impl="auto", cov_impl="auto", stage_ms=None, mesh=None):
+                            desroziers_iterations=0, desroziers_bins=1, stage_ms=None,
+                            mesh=None):
         """The month analysis on the granules' device: the observation
         operator per granule + monthly statistics + bias correction + OI +
         innovation diagnostics, for months whose granules share one kind and
@@ -470,10 +463,8 @@ class oisatgmi:
         ``desroziers_iterations`` > 0 skip the step's scalar OI and run the
         OI tail of :meth:`oi` on the averaged fields: the returned ``oi``
         slot then holds NaN placeholders with ``reg_index`` -1 and a scaling
-        factor of ones, so read the attributes for the OI results.
-        ``curve_impl`` / ``cov_impl`` pick the scalar OI's curve engine and
-        the full OI's covariance engine.  ``mesh`` (more than one position):
-        the month step runs through its maker
+        factor of ones, so read the attributes for the OI results.  ``mesh``
+        (more than one position): the month step runs through its maker
         (:data:`~oisat_tpu_torch.parallel.analysis.MONTH_MAKERS`), granules
         split over 'obs' and rows over 'grid', with the result on the mesh's
         first device; the OI tail gets the mesh too.  With a ``stage_ms`` dict (the
@@ -523,7 +514,7 @@ class oisatgmi:
         inputs, step = self._fused_inputs(kind, sensor, ctm_data, grans)
         clock.mark("assemble")
         kw = dict(bias_offset=offset, bias_slope=slope, error_ctm=float(error_ctm),
-                  ctm_scale=float(ctm_scale), weighting=weighting, curve_impl=curve_impl,
+                  ctm_scale=float(ctm_scale), weighting=weighting,
                   return_granules=save_daily is not None, run_oi=not oi_tail)
         if mesh is not None and mesh.size > 1:
             fn, shard = MONTH_MAKERS[step](mesh, **kw)
@@ -545,8 +536,7 @@ class oisatgmi:
         clock.mark("pull")
         if oi_tail:
             self._oi_impl(sensor, error_ctm, oi_method, length_scale_km,
-                          desroziers_iterations, desroziers_bins, curve_impl, cov_impl,
-                          clock, mesh)
+                          desroziers_iterations, desroziers_bins, clock, mesh)
             if oi_method != "full":
                 clock.mark("oi_tail")
             return out

@@ -21,10 +21,9 @@ accumulated in float32 over at most ``block`` terms.
   the kernel's wide shape (K > 32) contracts on the tensor cores: six
   products of pieces, each exact in float32, in place of one float32
   product (the TPU's HIGHEST precision built the same way).
-* :data:`B_MATMAT_IMPLS` maps "auto" (the plain version for CPU tensors,
-  the kernel for CUDA tensors, no fallback), "kernel" and "plain" to them;
-  the names are :data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`'s,
-  so one ``cov_impl`` picks both covariance engines.
+* :func:`b_matmat` picks by the tensors' device: the plain version for CPU
+  tensors, the kernel for CUDA tensors, never a fallback; no caller picks
+  the engine.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ import torch
 from oisat_tpu_torch.ops.kernels._build import load_library
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM
 
-__all__ = ["B_MATMAT_IMPLS", "SLAB", "MAX_BLOCK", "C_SPLIT_SCALE", "b_matmat_kernel",
+__all__ = ["SLAB", "MAX_BLOCK", "C_SPLIT_SCALE", "b_matmat", "b_matmat_kernel",
            "b_matmat_plain", "b_matmat_reference", "declare_abi", "neg_half_kappa",
            "split_bf16x3"]
 
@@ -197,12 +196,10 @@ def b_matmat_kernel(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, 
 b_matmat_kernel.launches = 0
 
 
-def _auto(u3, dv, length_scale_km, block, c0, c1):
+def b_matmat(u3: torch.Tensor, dv: torch.Tensor, length_scale_km: float, block: int,
+             c0: int, c1: int) -> torch.Tensor:
+    """P of chunks [c0, c1): the plain version for CPU tensors, the kernel
+    otherwise."""
     if u3.device.type == "cpu":
         return b_matmat_plain(u3, dv, length_scale_km, block, c0, c1)
     return b_matmat_kernel(u3, dv, length_scale_km, block, c0, c1)
-
-
-# "auto": the kernel for CUDA tensors, the plain version for CPU tensors;
-# "kernel" / "plain" force one engine (chip_smoke.py compares the two).
-B_MATMAT_IMPLS = {"auto": _auto, "kernel": b_matmat_kernel, "plain": b_matmat_plain}

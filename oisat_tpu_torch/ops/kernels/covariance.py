@@ -14,8 +14,9 @@ needs no asin.  Everything is float32, as in the JAX kernel.
   broadcasts (the CPU tests use it; ``chip_smoke.py`` compares the kernel
   with it on the card).
 * :func:`build_covariance` takes degrees and picks by the tensors' device:
-  the plain version on the CPU, the kernel on CUDA.  There is no ``N % tile``
-  requirement and no padding.
+  the plain version on the CPU, the kernel on CUDA, never a fallback; no
+  caller picks the engine.  There is no ``N % tile`` requirement and no
+  padding.
 * :func:`build_covariance_reference` is the NumPy float64 golden.
 """
 
@@ -31,8 +32,7 @@ from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.ops.kernels._build import load_library
 
 __all__ = ["EARTH_RADIUS_KM", "build_covariance", "build_covariance_kernel",
-           "build_covariance_plain", "build_covariance_reference", "COV_IMPLS",
-           "radians_f32"]
+           "build_covariance_plain", "build_covariance_reference", "radians_f32"]
 
 EARTH_RADIUS_KM = 6371.0
 _SOURCE = "covariance"
@@ -133,31 +133,15 @@ def build_covariance_kernel(lat: torch.Tensor, lon: torch.Tensor, sigma: torch.T
 build_covariance_kernel.launches = 0
 
 
-def _auto(lat, lon, sigma, length_scale_km):
-    if lat.device.type == "cpu":
-        return build_covariance_plain(lat, lon, sigma, length_scale_km)
-    return build_covariance_kernel(lat, lon, sigma, length_scale_km)
-
-
-# "auto": the kernel for CUDA tensors, the plain version for CPU tensors;
-# "kernel" / "plain" force one engine (chip_smoke.py compares the two).
-COV_IMPLS = {"auto": _auto, "kernel": build_covariance_kernel,
-             "plain": build_covariance_plain}
-
-
-def build_covariance(lat_deg, lon_deg, sigma, length_scale_km: float, *, device,
-                     impl: str = "auto") -> torch.Tensor:
+def build_covariance(lat_deg, lon_deg, sigma, length_scale_km: float, *,
+                     device) -> torch.Tensor:
     """B (N, N) float32 on ``device`` from degree coordinates and the
-    per-cell background std (arrays or tensors of N values).
-
-    ``impl`` picks the engine (see :data:`COV_IMPLS`); "auto" takes the plain
-    version for the CPU and the kernel for CUDA, with no fallback."""
-    if impl not in COV_IMPLS:
-        raise ValueError(f"impl must be one of {sorted(COV_IMPLS)}, got {impl!r}")
+    per-cell background std (arrays or tensors of N values): the plain
+    version for the CPU, the kernel for CUDA, with no fallback."""
     dev = resolve_device(device)
-    lat = radians_f32(lat_deg, dev)
-    lon = radians_f32(lon_deg, dev)
-    return COV_IMPLS[impl](lat, lon, _f32_vector(sigma, dev), float(length_scale_km))
+    engine = build_covariance_plain if dev.type == "cpu" else build_covariance_kernel
+    return engine(radians_f32(lat_deg, dev), radians_f32(lon_deg, dev),
+                  _f32_vector(sigma, dev), float(length_scale_km))
 
 
 def build_covariance_reference(lat_deg, lon_deg, sigma, length_scale_km):

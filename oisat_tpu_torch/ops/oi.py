@@ -35,24 +35,13 @@ import numpy as np
 import torch
 
 from oisat_tpu_torch._device import to_device
-from oisat_tpu_torch.ops.kernels.oi_scan import (
-    ak_curve_sums,
-    ak_curve_sums_kernel,
-    ak_curve_sums_plain,
-    ak_curve_sums_sharded,
-)
+from oisat_tpu_torch.ops.kernels.oi_scan import ak_curve_sums, ak_curve_sums_sharded
 from oisat_tpu_torch.ops.knee import kneedle_index_np
 from oisat_tpu_torch.parallel.mesh import gather, split, sum_in_order
 from oisat_tpu_torch.utils.profiling import count, span
 
 __all__ = ["OIResult", "regularization_grid", "curve_inputs", "ak_curve", "oi",
-           "oi_sharded", "gather_oi", "CURVE_IMPLS"]
-
-# "auto": the kernel for CUDA tensors, the plain version for CPU tensors;
-# "kernel": the CUDA kernel only (raises on a CPU tensor);
-# "plain": the plain PyTorch version (tests and kernel comparisons).
-CURVE_IMPLS = {"auto": ak_curve_sums, "kernel": ak_curve_sums_kernel,
-               "plain": ak_curve_sums_plain}
+           "oi_sharded", "gather_oi"]
 
 
 def regularization_grid() -> np.ndarray:
@@ -95,17 +84,17 @@ def curve_inputs(sa: torch.Tensor, so: torch.Tensor):
     return u, valid
 
 
-def ak_curve(sa: torch.Tensor, so: torch.Tensor, regs: torch.Tensor,
-             curve_impl: str = "auto") -> torch.Tensor:
+def ak_curve(sa: torch.Tensor, so: torch.Tensor, regs: torch.Tensor) -> torch.Tensor:
     """Mean-AK-vs-regularization curve (R,) in ``regs``' dtype: the factor
-    sums of the chosen engine over the valid count, NaN when no cell is
+    sums of :func:`ak_curve_sums` over the valid count, NaN when no cell is
     valid."""
-    return curve_of_shards([sa], [so], regs, CURVE_IMPLS[curve_impl])
+    return curve_of_shards([sa], [so], regs)
 
 
-def curve_of_shards(sa, so, regs: torch.Tensor, engine) -> torch.Tensor:
+def curve_of_shards(sa, so, regs: torch.Tensor, engine=ak_curve_sums) -> torch.Tensor:
     """The curve over lists of per-shard ``sa`` / ``so``: each shard's sums
-    by ``engine`` on its own device, added in shard order
+    by ``engine`` (default :func:`ak_curve_sums`, picked by the shard's
+    device) on its own device, added in shard order
     (:func:`ak_curve_sums_sharded`), over the summed valid count."""
     pairs = [curve_inputs(a, o) for a, o in zip(sa, so)]
     sums = ak_curve_sums_sharded([u.reshape(-1).contiguous() for u, _ in pairs], regs, engine)
@@ -115,30 +104,28 @@ def curve_of_shards(sa, so, regs: torch.Tensor, engine) -> torch.Tensor:
 
 
 def oi(xa: torch.Tensor, y: torch.Tensor, sa: torch.Tensor, so: torch.Tensor,
-       regularization_on: bool = True, curve_impl: str = "auto", curve_fn=None,
-       mesh=None) -> OIResult:
+       regularization_on: bool = True, curve_fn=None, mesh=None) -> OIResult:
     """OI update. ``xa``: prior, ``y``: obs, ``sa``/``so``: error variances.
 
     All inputs share one shape and device; NaN marks missing cells and
     propagates.  The result dtype follows the inputs (float32 or float64).
-    ``curve_impl`` picks the curve engine (see :data:`CURVE_IMPLS`);
-    ``curve_fn`` ``(sa, so, regs) -> curve`` replaces it, as the JAX hook
-    does.  ``mesh`` (a :class:`~oisat_tpu_torch.parallel.mesh.Mesh` whose
+    The curve's engine is picked by the device (:func:`ak_curve_sums`);
+    ``curve_fn`` ``(sa, so, regs) -> curve`` replaces the curve, as the JAX
+    hook does.  ``mesh`` (a :class:`~oisat_tpu_torch.parallel.mesh.Mesh` whose
     grid axis holds more than one position): the rows are split over that
     axis, the update runs as :func:`oi_sharded` and the result is gathered
     on ``xa``'s device."""
     if mesh is None or len(mesh.axis_devices("grid")) == 1:
-        return oi_sharded([xa], [y], [sa], [so], regularization_on, curve_impl, curve_fn)[0]
+        return oi_sharded([xa], [y], [sa], [so], regularization_on, curve_fn)[0]
     if curve_fn is not None:
         raise ValueError("curve_fn replaces the curve of one shard; it takes no mesh")
     devices = mesh.axis_devices("grid")
     parts = oi_sharded(*(split(t, devices, 0) for t in (xa, y, sa, so)),
-                       regularization_on=regularization_on, curve_impl=curve_impl)
+                       regularization_on=regularization_on)
     return gather_oi(parts, xa.device)
 
 
-def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_impl: str = "auto",
-               curve_fn=None) -> list:
+def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_fn=None) -> list:
     """The OI update over grid shards: ``xa``, ``y``, ``sa``, ``so`` are
     lists of per-shard tensors, shard k's four on one device.  The curve is
     the shards' sums added in shard order over the summed valid count
@@ -146,8 +133,6 @@ def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_impl: str = 
     device), pulled to the host once for the knee; the Kalman terms then run
     per shard.  Returns one :class:`OIResult` per shard, each on its shard's
     device with the same factor and curve."""
-    if curve_impl not in CURVE_IMPLS:
-        raise ValueError(f"curve_impl must be one of {sorted(CURVE_IMPLS)}, got {curve_impl!r}")
     dtype = functools.reduce(torch.promote_types,
                              (t.dtype for t in (xa[0], y[0], sa[0], so[0])))
     shards = []
@@ -157,10 +142,10 @@ def oi_sharded(xa, y, sa, so, regularization_on: bool = True, curve_impl: str = 
         shards.append((a, torch.where(b < 0, torch.zeros_like(b), b), c, d))
 
     with span("oi.scalar"):
-        return _oi_shards(shards, dtype, regularization_on, curve_impl, curve_fn)
+        return _oi_shards(shards, dtype, regularization_on, curve_fn)
 
 
-def _oi_shards(shards, dtype, regularization_on: bool, curve_impl: str, curve_fn) -> list:
+def _oi_shards(shards, dtype, regularization_on: bool, curve_fn) -> list:
     regs_np = regularization_grid() if regularization_on else np.array([1.0])
     regs = to_device(regs_np, shards[0][0].device, dtype)
     if curve_fn is not None:
@@ -168,8 +153,7 @@ def _oi_shards(shards, dtype, regularization_on: bool, curve_impl: str, curve_fn
             raise ValueError("curve_fn replaces the curve of one shard")
         curve = curve_fn(shards[0][2], shards[0][3], regs).to(dtype)
     else:
-        curve = curve_of_shards([s[2] for s in shards], [s[3] for s in shards], regs,
-                                CURVE_IMPLS[curve_impl])
+        curve = curve_of_shards([s[2] for s in shards], [s[3] for s in shards], regs)
     if regularization_on:
         # one 99-float device->host pull; the knee is host numpy
         count("syncs")

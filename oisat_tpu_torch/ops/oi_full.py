@@ -120,8 +120,7 @@ class OIFullResult(NamedTuple):
 
 
 def oi_full_dense(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
-                  diag_block: int = 1024, *, cov_impl: str = "auto",
-                  clock: StageClock | None = None):
+                  diag_block: int = 1024, *, clock: StageClock | None = None):
     """Dense solve without the scan: 1-D float32 tensors of N finite cells on
     one device (``lat``/``lon`` in degrees).  Returns (xb, ak, increment, err).
     ``clock`` marks the stages "covariance" and "dense_solve".
@@ -132,7 +131,7 @@ def oi_full_dense(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
     ``cholesky_solve``."""
     clock = clock or StageClock(None, "cpu")
     dev = xa.device
-    b = build_covariance(lat, lon, sigma_b, length_scale_km, device=dev, impl=cov_impl)
+    b = build_covariance(lat, lon, sigma_b, length_scale_km, device=dev)
     clock.mark("covariance")
     a = b + torch.diag(sigma_o.to(torch.float32) ** 2)
     chol = torch.linalg.cholesky(a)
@@ -156,7 +155,7 @@ def oi_full_dense(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
 
 
 def oi_full_dense_scan(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
-                       regs, *, cov_impl: str = "auto", clock: StageClock | None = None):
+                       regs, *, clock: StageClock | None = None):
     """Full-covariance OI with the reference's regularization scan, as
     :func:`oisat_tpu.ops.oi_full.oi_full_dense_scan`: whiten by R and
     eigendecompose once,
@@ -173,7 +172,7 @@ def oi_full_dense_scan(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float
     clock = clock or StageClock(None, "cpu")
     f32 = torch.float32
     dev = xa.device
-    b = build_covariance(lat, lon, sigma_b, length_scale_km, device=dev, impl=cov_impl)
+    b = build_covariance(lat, lon, sigma_b, length_scale_km, device=dev)
     clock.mark("covariance")
     dinv = 1.0 / sigma_o.to(f32)
     c = b * dinv[:, None] * dinv[None, :]
@@ -562,17 +561,13 @@ def compact(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d) -> Compacted:
 
 
 def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: float,
-            regularization_on: bool = False, *, device="cuda", cov_impl: str = "auto",
-            stage_ms: dict | None = None, mesh=None):
+            regularization_on: bool = False, *, device="cuda", stage_ms: dict | None = None,
+            mesh=None):
     """Grid-shaped full-covariance OI on ``device`` (the card unless the
     caller asks for the CPU): compaction, normalisation, the solve, and
-    scatter-back to float64 numpy grids (NaN off the valid cells).
-    ``cov_impl`` picks the covariance engine: the dense branch's B builder
-    (:data:`oisat_tpu_torch.ops.kernels.covariance.COV_IMPLS`) and the
-    matrix-free branch's B.V sweep
-    (:data:`oisat_tpu_torch.ops.kernels.b_matmat.B_MATMAT_IMPLS`), both
-    "auto" (the kernel on the card, torch ops on the CPU), "kernel" or
-    "plain".
+    scatter-back to float64 numpy grids (NaN off the valid cells).  The
+    dense branch's B and the matrix-free branch's B.V sweeps run on the
+    hand-written kernels on the card and on their plain versions on the CPU.
 
     Up to ``DENSE_SCAN_MAX_CELLS`` (``regularization_on``: the 99-factor
     scan) or ``DENSE_MAX_CELLS`` (without) valid cells: the dense solve and
@@ -613,8 +608,7 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     if n > (DENSE_SCAN_MAX_CELLS if regularization_on else DENSE_MAX_CELLS):
         clock.mark("compact")
         xb_v, ak_v, inc_v, err_v, info = _oi_full_large(
-            cp, float(length_scale_km), regularization_on, dev, clock, mesh=mesh,
-            cov_impl=cov_impl)
+            cp, float(length_scale_km), regularization_on, dev, clock, mesh=mesh)
         # the solver saw normalised fields: the two field-scaled numbers
         # leave in physical units (the relative cg_resid is scale-free)
         for key in ("resid_abs", "stat_norm"):
@@ -622,7 +616,7 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
                 info[key] = info[key] * cp.scale
     else:
         xb_v, ak_v, inc_v, err_v, info = _oi_full_dense_branch(
-            cp, float(length_scale_km), regularization_on, dev, cov_impl, clock)
+            cp, float(length_scale_km), regularization_on, dev, clock)
     res = OIFullResult(scatter(xb_v, cp.scale), scatter(ak_v), scatter(inc_v, cp.scale),
                        scatter(err_v, cp.scale), info)
     clock.mark("scatter")
@@ -630,7 +624,7 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
 
 
 def _oi_full_dense_branch(cp: Compacted, length_scale_km: float, regularization_on: bool,
-                          dev, cov_impl: str, clock: StageClock):
+                          dev, clock: StageClock):
     """The dense solve of the compacted cells and, at tight conditioning,
     the exact float64 tail: (xb, ak, increment, err, info) as compacted
     numpy vectors in the normalised units."""
@@ -644,10 +638,10 @@ def _oi_full_dense_branch(cp: Compacted, length_scale_km: float, regularization_
     if regularization_on:
         grid = regularization_grid()
         xb_v, ak_v, inc_v, err_v, reg_index, _ = oi_full_dense_scan(
-            *args, grid.astype(np.float32), cov_impl=cov_impl, clock=clock)
+            *args, grid.astype(np.float32), clock=clock)
         r_chosen = float(grid[reg_index])
     else:
-        xb_v, ak_v, inc_v, err_v = oi_full_dense(*args, cov_impl=cov_impl, clock=clock)
+        xb_v, ak_v, inc_v, err_v = oi_full_dense(*args, clock=clock)
         r_chosen = 1.0
     xb_v, ak_v, inc_v, err_v = (_host64(v) for v in (xb_v, ak_v, inc_v, err_v))
     clock.mark("pull")
@@ -701,21 +695,19 @@ def pad_for_matfree(cp: Compacted, block: int = MATFREE_BLOCK) -> Padded:
 
 
 def slq_knee(pv: Padded, length_scale_km: float, device, block: int = MATFREE_BLOCK,
-             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS, mesh=None,
-             cov_impl: str = "auto"):
+             n_probes: int = SLQ_PROBES, m: int = SLQ_STEPS, mesh=None):
     """(reg_index, curve): the Kneedle knee of the full-domain SLQ mean-AK
     curve (:func:`mean_ak_curve_slq`) over the regularization grid."""
     grid = regularization_grid()
     curve = mean_ak_curve_slq((pv.lat, pv.lon), pv.sb, pv.so, grid, length_scale_km,
                               block=block, n_probes=n_probes, m=m, valid=pv.valid,
-                              device=device, mesh=mesh, cov_impl=cov_impl)
+                              device=device, mesh=mesh)
     with np.errstate(invalid="ignore"):
         return int(kneedle_index_np(grid, curve, fallback=0)), curve
 
 
 def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: bool, dev,
-                   clock: StageClock | None = None, block: int = MATFREE_BLOCK, mesh=None,
-                   cov_impl: str = "auto"):
+                   clock: StageClock | None = None, block: int = MATFREE_BLOCK, mesh=None):
     """The large branch of :func:`oi_full`, as the twin's ``_oi_full_large``:
     the compacted cells padded to a ``block`` multiple.  Where the padded
     count is in the exact float64 branch's range (``NYSTROM_MIN_CELLS`` up to
@@ -724,8 +716,7 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
     and the exact posterior, in one N x N buffer.  Elsewhere, with
     ``regularization_on`` the knee of the full-domain float32 SLQ mean-AK
     curve (:func:`slq_knee`) picks the factor r and sigma_b is scaled by
-    sqrt(r); then :func:`oi_full_matfree`, every sweep on ``cov_impl``'s
-    engine.  Sets ``info["stat_norm"]`` (the
+    sqrt(r); then :func:`oi_full_matfree`.  Sets ``info["stat_norm"]`` (the
     posterior-std norm) and prints the twin's WARNING when the solve did not
     converge and its field-error bound ``resid_abs`` is not well under
     ``stat_norm``.  Returns (xb, ak, increment, err, info), compacted, in the
@@ -740,14 +731,13 @@ def _oi_full_large(cp: Compacted, length_scale_km: float, regularization_on: boo
     else:
         sb_v = pv.sb
         if regularization_on:
-            reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh,
-                                    cov_impl=cov_impl)
+            reg_index, _ = slq_knee(pv, length_scale_km, dev, block, mesh=mesh)
             # r B = (sqrt(r) sigma_b) C (sqrt(r) sigma_b)
             sb_v = sb_v * np.sqrt(float(regularization_grid()[reg_index]))
             clock.mark("slq")
         xb_v, ak_v, inc_v, err_v, info = oi_full_matfree(
             pv.xa, pv.y, sb_v, pv.so, pv.lat, pv.lon, length_scale_km, block=block,
-            valid=pv.valid, device=dev, clock=clock, mesh=mesh, cov_impl=cov_impl)
+            valid=pv.valid, device=dev, clock=clock, mesh=mesh)
     # numerics against statistics: the solve's field-error bound resid_abs
     # against the posterior-std norm the analysis is determined to
     stat = float(np.linalg.norm(err_v[:n]))

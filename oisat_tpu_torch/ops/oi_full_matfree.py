@@ -13,8 +13,8 @@ Nothing here forms the N x N covariance:
   order -- both numerics choices of the JAX twin (the Gram form loses ~5e-5
   per element at kappa ~ 450; one long float32 contraction raises CG's
   residual floor).  On CUDA tensors the hand-written ``csrc/b_matmat.cu``
-  does it in one pass (``ops/kernels/b_matmat.py``); on CPU tensors, or
-  with ``cov_impl="plain"``, torch ops and a chunk-leading ``torch.bmm``.
+  does it in one pass (``ops/kernels/b_matmat.py``); on CPU tensors torch
+  ops and a chunk-leading ``torch.bmm``.
   Every float32 product runs in full float32, as ``Precision.HIGHEST``
   does in JAX (torch's default; ``chip_smoke.py`` asserts that TF32 is off).
 * :func:`_cg_loop` is the multi-column PCG of the twin's ``while_loop`` as a
@@ -46,9 +46,6 @@ each position sums its own chunk range's partials on its device, and the
 (N, K) partials are added in position order on the first device.  A mesh
 of one position is dropped, as in the twin.
 
-``cov_impl`` ("auto", "kernel" or "plain", the names of the dense branch's
-covariance engines) picks the sweep's engine in every solve here.
-
 TPU workarounds dropped: the 128-lane padding of the probe columns and the
 8-column padding of the innovation solve (zero columns start converged and
 change nothing; only the Nystrom rank keeps its 128 rounding, which sets the
@@ -66,7 +63,7 @@ import numpy as np
 import torch
 
 from oisat_tpu_torch._device import resolve_device, to_device, to_host
-from oisat_tpu_torch.ops.kernels.b_matmat import B_MATMAT_IMPLS
+from oisat_tpu_torch.ops.kernels.b_matmat import b_matmat
 from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, radians_f32
 from oisat_tpu_torch.parallel.mesh import sum_in_order
 from oisat_tpu_torch.utils.lru import LockedLRU
@@ -125,14 +122,14 @@ def _unit_vectors(lat_deg, lon_deg, device) -> torch.Tensor:
     return torch.stack([cl * torch.cos(lon), cl * torch.sin(lon), torch.sin(lat)], dim=-1)
 
 
-def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int, mesh=None,
-              impl: str = "auto") -> torch.Tensor:
+def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int, mesh=None, *,
+              engine=b_matmat) -> torch.Tensor:
     """Y = B V without forming B: ``u3`` (N, 3), ``sigma_b`` (N,), ``v`` (N, K),
-    N a multiple of ``block``.  ``impl`` picks the engine of the column-chunk
-    contraction (:data:`~oisat_tpu_torch.ops.kernels.b_matmat.B_MATMAT_IMPLS`:
-    "auto" launches ``csrc/b_matmat.cu`` on CUDA tensors, which builds each
+    N a multiple of ``block``.  ``engine`` runs the column-chunk contraction
+    (default :func:`~oisat_tpu_torch.ops.kernels.b_matmat.b_matmat`, picked
+    by the device: ``csrc/b_matmat.cu`` on CUDA tensors, which builds each
     tile of ``exp(-kappa d^2 / 2)`` in registers and contracts it in place,
-    and takes the torch-op version on CPU tensors).  Both build each element
+    the torch-op version on CPU tensors).  Both build each element
     from explicit coordinate differences (exact for nearby float32
     coordinates, so each element's error is relative and B stays
     numerically PSD) and add the ``block``-wide chunks' partials in chunk
@@ -142,9 +139,6 @@ def _b_matmat(u3, sigma_b, v, length_scale_km: float, block: int, mesh=None,
     (unevenly; a position may get none), each position sweeps all rows
     against its chunk range on its device, and the positions' (N, K)
     partials are added in position order on ``u3``'s device."""
-    if impl not in B_MATMAT_IMPLS:
-        raise ValueError(f"impl must be one of {sorted(B_MATMAT_IMPLS)}, got {impl!r}")
-    engine = B_MATMAT_IMPLS[impl]
     n = u3.shape[0]
     if n % block:
         raise ValueError(f"_b_matmat: N={n} must be a multiple of block={block}")
@@ -209,11 +203,11 @@ def _cg_loop(amat, psolve, rhs, tol: float, maxiter: int, stall: int = JACOBI_ST
 
 
 def _cg_solve_multi(u3, sigma_b, sigma_o2, rhs, length_scale_km: float, block: int,
-                    tol: float, maxiter: int, mesh=None, cov_impl: str = "auto"):
+                    tol: float, maxiter: int, mesh=None):
     """Jacobi-preconditioned CG for (B + diag(sigma_o^2)) X = RHS."""
 
     def amat(v):
-        return (_b_matmat(u3, sigma_b, v, length_scale_km, block, mesh, cov_impl)
+        return (_b_matmat(u3, sigma_b, v, length_scale_km, block, mesh)
                 + sigma_o2[:, None] * v)
 
     minv = (1.0 / (sigma_b ** 2 + sigma_o2))[:, None]
@@ -228,13 +222,12 @@ def _sketch(n: int, k: int, device) -> torch.Tensor:
     return torch.randn((n, k), generator=gen, device=device, dtype=_f32)
 
 
-def _nystrom_factor(u3, sigma_b, omega, length_scale_km: float, block: int, mesh=None,
-                    cov_impl: str = "auto"):
+def _nystrom_factor(u3, sigma_b, omega, length_scale_km: float, block: int, mesh=None):
     """Rank-k randomized Nystrom eigenfactor (U, lam) of the unwhitened prior
     covariance, B ~= U diag(lam) U^T, from the sketch ``omega`` (N, k): one
     sweep of B against the k columns, two k x k eigendecompositions; modes
     under 3e-6 lam_max (float32 eigh noise) come out as lam = 0."""
-    y = _b_matmat(u3, sigma_b, omega, length_scale_km, block, mesh, cov_impl)
+    y = _b_matmat(u3, sigma_b, omega, length_scale_km, block, mesh)
     g = omega.T @ y
     g = 0.5 * (g + g.T)
     w, v = torch.linalg.eigh(g)  # ascending
@@ -254,14 +247,14 @@ def _nystrom_factor(u3, sigma_b, omega, length_scale_km: float, block: int, mesh
 
 def _pcg_solve_nystrom(u3, sigma_b, sigma_o2, rhs, nys_u, nys_lam, c2, dcomp,
                        length_scale_km: float, block: int, tol: float, maxiter: int,
-                       mesh=None, cov_impl: str = "auto"):
+                       mesh=None):
     """CG with the Nystrom deflation preconditioner (Frangella, Tropp & Udell,
     projector form): ``M^-1 = P D_c^-1 P + U diag(1 / (lam + c2)) U^T``,
     ``P = I - U U^T``, ``dcomp`` the per-cell complement diagonal (the prior
     variance the sketch missed plus sigma_o^2)."""
 
     def amat(v):
-        return (_b_matmat(u3, sigma_b, v, length_scale_km, block, mesh, cov_impl)
+        return (_b_matmat(u3, sigma_b, v, length_scale_km, block, mesh)
                 + sigma_o2[:, None] * v)
 
     dinv = (1.0 / dcomp)[:, None]
@@ -277,7 +270,7 @@ def _pcg_solve_nystrom(u3, sigma_b, sigma_o2, rhs, nys_u, nys_lam, c2, dcomp,
 
 
 def _lanczos_tridiag_batch(u3, sigma_b, sigma_o, q0, length_scale_km: float, block: int,
-                           m: int, mesh=None, cov_impl: str = "auto"):
+                           m: int, mesh=None):
     """m-step Lanczos of the whitened covariance ``D_o^-1 B D_o^-1``, one
     recurrence per column of ``q0``, all sharing each sweep.  Returns
     (alpha (m, K), beta (m, K), norms (K,))."""
@@ -285,7 +278,7 @@ def _lanczos_tridiag_batch(u3, sigma_b, sigma_o, q0, length_scale_km: float, blo
 
     def cmat(v):
         return oin[:, None] * _b_matmat(u3, sigma_b, oin[:, None] * v, length_scale_km, block,
-                                        mesh, cov_impl)
+                                        mesh)
 
     return _lanczos(cmat, q0, m)
 
@@ -323,8 +316,7 @@ def _as_f32(a, device) -> torch.Tensor:
 
 def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: float,
                       block: int = 1024, n_probes: int = 8, m: int = 60, seed: int = 0,
-                      valid=None, device="cuda", mesh=None,
-                      cov_impl: str = "auto") -> np.ndarray:
+                      valid=None, device="cuda", mesh=None) -> np.ndarray:
     """Full-domain mean-AK-vs-regularization curve by stochastic Lanczos
     quadrature, as :func:`oisat_tpu.ops.oi_full.mean_ak_curve_slq`:
     ``meanAK(r) = (r / Nv) tr(D_bd^-1 B (rB + R)^-1 B)``, every factor a
@@ -337,7 +329,7 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     tensor (whose device is used).  Inputs are padded to a ``block`` multiple with
     sigma_b = 0 / sigma_o = 1 rows, as in the twin, so the Rademacher probes
     of ``np.random.default_rng(seed)`` line up.  ``mesh`` shards every
-    sweep and ``cov_impl`` picks its engine (see :func:`_b_matmat`).
+    sweep (see :func:`_b_matmat`).
     Returns the (R,) float64 curve."""
     mesh = _drop_single(mesh)
     if isinstance(u3_or_latlon, tuple):
@@ -368,15 +360,14 @@ def mean_ak_curve_slq(u3_or_latlon, sigma_b, sigma_o, regs, length_scale_km: flo
     z[~valid] = 0.0
     zd = z / np.where(valid, bd, 1.0)[:, None]  # D_bd^-1 z
     both = torch.as_tensor(np.concatenate([zd, z], axis=1).astype(np.float32), device=dev)
-    bz = _b_matmat(u3, sigma_b, both, float(length_scale_km), block, mesh,
-                   cov_impl).cpu().numpy()
+    bz = _b_matmat(u3, sigma_b, both, float(length_scale_km), block, mesh).cpu().numpy()
     a = bz[:, :n_probes].astype(np.float64)  # B D_bd^-1 z
     b = bz[:, n_probes:].astype(np.float64)  # B z
     oin = 1.0 / so.astype(np.float32).astype(np.float64)
     q0 = np.concatenate([(a + b) * oin[:, None], (a - b) * oin[:, None]], axis=1)
     alphas, betas, norms = _lanczos_tridiag_batch(
         u3, sigma_b, sigma_o, torch.as_tensor(q0.astype(np.float32), device=dev),
-        float(length_scale_km), block, m, mesh, cov_impl)
+        float(length_scale_km), block, m, mesh)
     alphas = alphas.cpu().numpy().astype(np.float64)  # (m, 2 n_probes)
     betas = betas.cpu().numpy().astype(np.float64)
     norms = norms.cpu().numpy().astype(np.float64)
@@ -632,7 +623,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
                     probe_sep_factor: float = 4.0, max_colors: int = 192,
                     cluster_radius_factor: float = 0.25, valid=None, precond: str = "auto",
                     nystrom_k: int = None, refine="auto", *, omega=None, device="cuda",
-                    clock: StageClock | None = None, mesh=None, cov_impl: str = "auto"):
+                    clock: StageClock | None = None, mesh=None):
     """Full-covariance OI without forming B, as
     :func:`oisat_tpu.ops.oi_full.oi_full_matfree`: 1-D finite host inputs of
     n cells (padded here to a ``block`` multiple with sigma_b = 0 /
@@ -654,13 +645,11 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
     (npad, k) is the Nystrom sketch (default :func:`_sketch`).  ``clock``
     marks "nystrom", "pcg", "refine", "tail", "tail_resid", "diag",
     "coloring" and "probe" as the branch reaches them.  ``mesh`` shards
-    every sweep and ``cov_impl`` picks its engine (see :func:`_b_matmat`)."""
+    every sweep (see :func:`_b_matmat`)."""
     clock = clock or StageClock(None, "cpu")
     from oisat_tpu_torch.ops import oi_full as dense
 
     mesh = _drop_single(mesh)
-    if cov_impl not in B_MATMAT_IMPLS:
-        raise ValueError(f"cov_impl must be one of {sorted(B_MATMAT_IMPLS)}, got {cov_impl!r}")
     if refine != "auto":
         refine = operator.index(refine)  # numpy ints count; floats and strings raise
     dev = resolve_device(device)
@@ -716,8 +705,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
         else:
             if omega is None:
                 omega = _sketch(n, k, dev)
-            nys_u, nys_lam = _nystrom_factor(u3, sigma_b, omega.to(dev, _f32), L, block, mesh,
-                                             cov_impl)
+            nys_u, nys_lam = _nystrom_factor(u3, sigma_b, omega.to(dev, _f32), L, block, mesh)
             so2_min = float(np.float32(np.min(so2_np[valid])))
             c2 = torch.clamp(float(np.float32(4.0) * np.float32(F32_EPS)) * nys_lam[-1],
                              min=so2_min)
@@ -729,7 +717,7 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
             def pcg(rhs_col):
                 return _pcg_solve_nystrom(u3, sigma_b, sigma_o2, rhs_col[:, None], nys_u,
                                           nys_lam, c2, dcomp, L, block, cg_tol, cg_maxiter,
-                                          mesh, cov_impl)
+                                          mesh)
 
             x, iters_total, resid_max = pcg(innov)
             x64 = x[:, 0].cpu().numpy().astype(np.float64)
@@ -795,13 +783,13 @@ def oi_full_matfree(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
             if lead:
                 rhs = torch.cat([innov[:, None], rhs], dim=1)
             x, iters, resid = _cg_solve_multi(u3, sigma_b, sigma_o2, rhs, L, block, cg_tol,
-                                              cg_maxiter, mesh, cov_impl)
+                                              cg_maxiter, mesh)
             iters_total += iters
             resid_max = max(resid_max, resid)
             clock.mark("pcg")
             tcols = torch.as_tensor(punit, device=dev) - x[:, lead:]
             s_all = _b_matmat(u3, sigma_b, torch.cat([x[:, :lead], tcols], dim=1), L, block,
-                              mesh, cov_impl)
+                              mesh)
             s_all = s_all.cpu().numpy().astype(np.float64)
             if lead:
                 increment = s_all[:, 0]

@@ -175,7 +175,7 @@ def _granule_weights_traced(weighting, uncertainty, aks=None):
 
 def _analyze_blocks(blocks, out_device, bias_offset: float = 0.0, bias_slope: float = 1.0,
                     error_ctm: float = 50.0, gosat_mode: bool = False, ctm_scale: float = 1.0,
-                    curve_impl: str = "auto", run_oi: bool = True) -> AnalysisOutputs:
+                    run_oi: bool = True) -> AnalysisOutputs:
     """Averaging + bias + OI + innovation statistics of a month split into
     blocks: ``blocks[i][j]`` is ``(AnalysisInputs, weights or None)`` for
     granule block i and grid-row shard j, all on one device.  The averaging
@@ -204,7 +204,7 @@ def _analyze_blocks(blocks, out_device, bias_offset: float = 0.0, bias_slope: fl
         return gather(fields, out_device, 0)
 
     if run_oi:
-        shards = oi_sharded(xa, y, sa, so, regularization_on=True, curve_impl=curve_impl)
+        shards = oi_sharded(xa, y, sa, so, regularization_on=True)
         sf, innov = [], []
         for xa_s, y_s, sa_s, so_s, res in zip(xa, y, sa, so, shards):
             f = res.xb / xa_s
@@ -238,7 +238,7 @@ def _analyze_blocks(blocks, out_device, bias_offset: float = 0.0, bias_slope: fl
 def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
                   bias_slope: float = 1.0, error_ctm: float = 50.0,
                   gosat_mode: bool = False, ctm_scale: float = 1.0, weights=None,
-                  curve_impl: str = "auto", run_oi: bool = True) -> AnalysisOutputs:
+                  run_oi: bool = True) -> AnalysisOutputs:
     """Monthly average + bias correction + OI update + innovation stats.
 
     ``gosat_mode``: the OI and the innovation statistics run on the xcol
@@ -246,7 +246,7 @@ def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
 
     ``ctm_scale`` rescales the averaged CTM column before the OI (the O3
     DU conversion); ``weights`` (G, H, W) selects the weighted temporal
-    statistics; ``curve_impl`` is passed to :func:`~oisat_tpu_torch.ops.oi.oi`.
+    statistics.
 
     ``run_oi=False`` skips the OI stage for callers that run their own OI
     afterwards (``oi_method="full"``): the ``oi`` slot carries NaN fields
@@ -255,7 +255,7 @@ def analysis_step(inputs: AnalysisInputs, bias_offset: float = 0.0,
     :func:`oisat_tpu.parallel.analysis.analysis_step`."""
     return _analyze_blocks([[(inputs, weights)]], inputs.vcd.device, bias_offset=bias_offset,
                            bias_slope=bias_slope, error_ctm=error_ctm, gosat_mode=gosat_mode,
-                           ctm_scale=ctm_scale, curve_impl=curve_impl, run_oi=run_oi)
+                           ctm_scale=ctm_scale, run_oi=run_oi)
 
 
 def over_granule_chunks(fn, tensors, extra=()):
@@ -349,8 +349,7 @@ def _month_blocks(operator, blocks, out_device, weighting=None,
 def full_month_step(inputs: FullMonthInputs, bias_offset: float = 0.0,
                     bias_slope: float = 1.0, error_ctm: float = 50.0,
                     ctm_scale: float = 1.0, weighting=None,
-                    curve_impl: str = "auto", return_granules: bool = False,
-                    run_oi: bool = True):
+                    return_granules: bool = False, run_oi: bool = True):
     """AMF recalculation per granule + monthly statistics + bias correction
     + OI for a whole month (:func:`oisat_tpu.parallel.analysis.full_month_step`).
 
@@ -361,48 +360,42 @@ def full_month_step(inputs: FullMonthInputs, bias_offset: float = 0.0,
     never holds)."""
     return _month_blocks(_full_operator, [[inputs]], inputs.vcd.device, weighting,
                          return_granules, bias_offset=bias_offset, bias_slope=bias_slope,
-                         error_ctm=error_ctm, ctm_scale=ctm_scale, curve_impl=curve_impl,
-                         run_oi=run_oi)
+                         error_ctm=error_ctm, ctm_scale=ctm_scale, run_oi=run_oi)
 
 
 def mopitt_month_step(inputs: MopittMonthInputs, bias_offset: float = 0.0,
                       bias_slope: float = 1.0, error_ctm: float = 50.0,
                       ctm_scale: float = 1.0, weighting=None,
-                      curve_impl: str = "auto", return_granules: bool = False,
-                      run_oi: bool = True):
+                      return_granules: bool = False, run_oi: bool = True):
     """AK convolution + averaging + OI for a MOPITT month (reference
     driver.py:45-51 conv_ak + :108-111 oi); aux1/aux2 are the retrieved and
     the model xcol.  ``weighting`` may also be "ak"."""
     return _month_blocks(_mopitt_operator, [[inputs]], inputs.vcd.device, weighting,
                          return_granules, bias_offset=bias_offset, bias_slope=bias_slope,
-                         error_ctm=error_ctm, ctm_scale=ctm_scale, curve_impl=curve_impl,
-                         run_oi=run_oi)
+                         error_ctm=error_ctm, ctm_scale=ctm_scale, run_oi=run_oi)
 
 
 def gosat_month_step(inputs: GosatMonthInputs, bias_offset: float = 0.0,
                      bias_slope: float = 1.0, error_ctm: float = 50.0,
                      ctm_scale: float = 1.0, weighting=None,
-                     curve_impl: str = "auto", return_granules: bool = False,
-                     run_oi: bool = True):
+                     return_granules: bool = False, run_oi: bool = True):
     """AK convolution + averaging + xcol-pair OI for a GOSAT month (reference
     ak_conv_gosat.py:8-146); the model VCD stays NaN (:138), in the daily
     granules too."""
     return _month_blocks(_gosat_operator, [[inputs]], inputs.vcd.device, weighting,
                          return_granules, bias_offset=bias_offset, bias_slope=bias_slope,
                          error_ctm=error_ctm, gosat_mode=True, ctm_scale=ctm_scale,
-                         curve_impl=curve_impl, run_oi=run_oi)
+                         run_oi=run_oi)
 
 
 def ssmis_month_step(inputs: SsmisMonthInputs, bias_offset: float = 0.0,
                      bias_slope: float = 1.0, error_ctm: float = 50.0,
                      ctm_scale: float = 1.0, weighting=None,
-                     curve_impl: str = "auto", return_granules: bool = False,
-                     run_oi: bool = True):
+                     return_granules: bool = False, run_oi: bool = True):
     """PWV + averaging + OI for an SSMIS month; aux1/aux2 are NaN."""
     return _month_blocks(_ssmis_operator, [[inputs]], inputs.vcd.device, weighting,
                          return_granules, bias_offset=bias_offset, bias_slope=bias_slope,
-                         error_ctm=error_ctm, ctm_scale=ctm_scale, curve_impl=curve_impl,
-                         run_oi=run_oi)
+                         error_ctm=error_ctm, ctm_scale=ctm_scale, run_oi=run_oi)
 
 
 # ---------------------------------------------------------------------------
@@ -416,17 +409,16 @@ class _ShardedMonth(NamedTuple):
     blocks: tuple
 
 
-def _make_month_step(operator, fields_cls, mesh, curve_impl: str, gosat_mode: bool, kwargs):
+def _make_month_step(operator, fields_cls, mesh, gosat_mode: bool, kwargs):
     """``(fn, shard_inputs)`` of a month step over ``mesh``, as the JAX
     maker returns.  ``shard_inputs`` splits every field's granule axis (0)
     over 'obs' and its row axis (-2) over 'grid' with ``torch.tensor_split``
     (uneven, no padding) and puts block (i, j) on ``mesh.devices[i][j]``: a
     block already there is a view of the input.  ``fn`` takes the sharded
     month (or an unsharded one, which it shards first) and returns what the
-    single-device step returns, on ``mesh.devices[0][0]``.  ``curve_impl``
-    "auto" runs each grid shard's curve on its device's engine (the kernel
-    on a CUDA shard, the plain version on a CPU shard); "kernel" and
-    "plain" force one."""
+    single-device step returns, on ``mesh.devices[0][0]``.  Each grid
+    shard's curve runs on its device's engine (the kernel on a CUDA shard,
+    the plain version on a CPU shard)."""
     kwargs = dict(kwargs)
     weighting = kwargs.pop("weighting", None)
     return_granules = kwargs.pop("return_granules", False)
@@ -446,37 +438,36 @@ def _make_month_step(operator, fields_cls, mesh, curve_impl: str, gosat_mode: bo
         if not isinstance(inputs, _ShardedMonth):
             inputs = shard_inputs(inputs)
         return _month_blocks(operator, inputs.blocks, mesh.devices[0][0], weighting,
-                             return_granules, curve_impl=curve_impl, **kwargs)
+                             return_granules, **kwargs)
 
     return fn, shard_inputs
 
 
-def make_analysis_step(mesh, curve_impl: str = "auto", **kwargs):
+def make_analysis_step(mesh, **kwargs):
     """:func:`analysis_step` over ``mesh``: ``(fn, shard_inputs)`` (see
     :func:`_make_month_step`); ``kwargs`` are the step's scalar keywords."""
-    return _make_month_step(_analysis_operator, AnalysisInputs, mesh, curve_impl, False, kwargs)
+    return _make_month_step(_analysis_operator, AnalysisInputs, mesh, False, kwargs)
 
 
-def make_full_month_step(mesh, curve_impl: str = "auto", **kwargs):
+def make_full_month_step(mesh, **kwargs):
     """:func:`full_month_step` over ``mesh``: granules split on 'obs', grid
     rows on 'grid', levels whole.  ``kwargs`` are the step's keywords."""
-    return _make_month_step(_full_operator, FullMonthInputs, mesh, curve_impl, False, kwargs)
+    return _make_month_step(_full_operator, FullMonthInputs, mesh, False, kwargs)
 
 
-def make_mopitt_month_step(mesh, curve_impl: str = "auto", **kwargs):
+def make_mopitt_month_step(mesh, **kwargs):
     """:func:`mopitt_month_step` over ``mesh``."""
-    return _make_month_step(_mopitt_operator, MopittMonthInputs, mesh, curve_impl, False,
-                            kwargs)
+    return _make_month_step(_mopitt_operator, MopittMonthInputs, mesh, False, kwargs)
 
 
-def make_gosat_month_step(mesh, curve_impl: str = "auto", **kwargs):
+def make_gosat_month_step(mesh, **kwargs):
     """:func:`gosat_month_step` over ``mesh`` (the xcol-pair OI)."""
-    return _make_month_step(_gosat_operator, GosatMonthInputs, mesh, curve_impl, True, kwargs)
+    return _make_month_step(_gosat_operator, GosatMonthInputs, mesh, True, kwargs)
 
 
-def make_ssmis_month_step(mesh, curve_impl: str = "auto", **kwargs):
+def make_ssmis_month_step(mesh, **kwargs):
     """:func:`ssmis_month_step` over ``mesh``."""
-    return _make_month_step(_ssmis_operator, SsmisMonthInputs, mesh, curve_impl, False, kwargs)
+    return _make_month_step(_ssmis_operator, SsmisMonthInputs, mesh, False, kwargs)
 
 
 # the maker of each single-device month step (the driver's mesh path)

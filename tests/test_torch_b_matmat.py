@@ -1,5 +1,5 @@
 """The matrix-free B.V sweep's engines (``oisat_tpu_torch.ops.kernels.b_matmat``)
-and the ``cov_impl`` choice through the matrix-free solves, on the CPU.
+and the device-picked engine through the matrix-free solves, on the CPU.
 
 The plain engine is the torch-op body that ``_b_matmat`` held before the
 sweep got its CUDA kernel, moved unchanged: it is held bitwise to a copy of
@@ -73,9 +73,8 @@ def _inputs(n, k, dtype=np.float32, seed=0, spread=(20, 60, -30, 20)):
 def test_plain_engine_is_the_old_sweep_bitwise(n, block, k, dtype):
     u3, sb, v = _inputs(n, k, dtype)
     want = _old_b_matmat(u3, sb, v, L_KM, block)
-    for impl in ("auto", "plain"):
-        got = M._b_matmat(u3, sb, v, L_KM, block, impl=impl)
-        assert got.dtype == want.dtype and torch.equal(got, want), impl
+    got = M._b_matmat(u3, sb, v, L_KM, block)
+    assert got.dtype == want.dtype and torch.equal(got, want)
     dv = sb[:, None] * v
     inner = BM.b_matmat_plain(u3, dv, L_KM, block, 0, n // block)
     assert torch.equal(sb[:, None] * inner, want)
@@ -87,7 +86,7 @@ def test_plain_engine_over_a_mesh_is_the_old_sweep_bitwise(positions):
     mesh = make_mesh(positions, devices=["cpu"] * positions)
     want = _old_b_matmat(u3, sb, v, L_KM, 128, mesh)
     assert torch.equal(M._b_matmat(u3, sb, v, L_KM, 128, mesh), want)
-    assert torch.equal(M._b_matmat(u3, sb, v, L_KM, 128, mesh, "plain"), want)
+    assert torch.equal(M._b_matmat(u3, sb, v, L_KM, 128, mesh, engine=BM.b_matmat_plain), want)
 
 
 @pytest.mark.parametrize("k", [1, 4, 17])
@@ -112,15 +111,14 @@ def test_plain_engine_chunk_ranges_add_up_in_order(k, positions):
     assert float((split - full).abs().max()) <= 1e-6 * float(full.abs().max())
 
 
-@pytest.mark.parametrize("impl", ["auto", "plain"])
-def test_one_hot_columns_are_b_against_float64(impl):
+def test_one_hot_columns_are_b_against_float64():
     n, block = 640, 128
     rng = np.random.default_rng(3)
     u3, sb, _ = _inputs(n, 1, seed=3, spread=(35, 45, -5, 5))
     cols = np.sort(rng.choice(n, 24, replace=False))
     onehot = torch.zeros((n, cols.size), dtype=torch.float32)
     onehot[cols, np.arange(cols.size)] = 1.0
-    got = M._b_matmat(u3, sb, onehot, L_KM, block, impl=impl).numpy().astype(np.float64)
+    got = M._b_matmat(u3, sb, onehot, L_KM, block).numpy().astype(np.float64)
     u64 = u3.numpy().astype(np.float64)
     s64 = sb.numpy().astype(np.float64)
     kappa = (EARTH_RADIUS_KM / L_KM) ** 2
@@ -140,12 +138,12 @@ def test_neg_half_kappa_is_the_float32_constant():
 def test_the_kernel_refuses_cpu_tensors_and_bad_engines():
     u3, sb, v = _inputs(256, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        M._b_matmat(u3, sb, v, L_KM, 128, impl="kernel")
-    with pytest.raises(ValueError, match="CUDA"):
+        M._b_matmat(u3, sb, v, L_KM, 128, engine=BM.b_matmat_kernel)
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
         BM.b_matmat_kernel(u3, sb[:, None] * v, L_KM, 128, 0, 2)
-    with pytest.raises(ValueError, match="impl must be one of"):
-        M._b_matmat(u3, sb, v, L_KM, 128, impl="fast")
-    assert set(BM.B_MATMAT_IMPLS) == {"auto", "kernel", "plain"}
+    # the device-picked engine takes the plain version for CPU tensors
+    assert torch.equal(BM.b_matmat(u3, sb[:, None] * v, L_KM, 128, 0, 2),
+                       BM.b_matmat_plain(u3, sb[:, None] * v, L_KM, 128, 0, 2))
     assert BM.b_matmat_kernel.launches == 0  # nothing launched on the CPU
 
 
@@ -159,55 +157,30 @@ def _small_args(n_side=16):
     return [a.ravel() for a in (xa, y, sigb, sigo, lat, lon)]
 
 
-@pytest.mark.parametrize("precond,kw", [("nystrom", dict(refine=0, nystrom_k=128)),
-                                        ("jacobi", dict(probe_sep_factor=6.0))])
-def test_oi_full_matfree_plain_engine_is_the_default_bitwise(precond, kw):
-    args = _small_args()
-    base = M.oi_full_matfree(*args, L_KM, block=128, precond=precond, device="cpu", **kw)
-    plain = M.oi_full_matfree(*args, L_KM, block=128, precond=precond, device="cpu",
-                              cov_impl="plain", **kw)
-    for a, b in zip(base[:4], plain[:4]):
-        assert np.array_equal(a, b, equal_nan=True)
-    assert base[4] == plain[4]
-
-
-def test_unknown_cov_impl_raises():
-    args = _small_args(8)
-    with pytest.raises(ValueError, match="cov_impl must be one of"):
-        M.oi_full_matfree(*args, L_KM, block=128, device="cpu", cov_impl="fast")
-    with pytest.raises(ValueError, match="impl must be one of"):
-        M.mean_ak_curve_slq((args[4], args[5]), args[2], args[3], np.array([1.0, 2.0]), L_KM,
-                            block=128, m=4, device="cpu", cov_impl="fast")
-    with pytest.raises(ValueError, match="kernel needs CUDA"):
-        M.oi_full_matfree(*args, L_KM, block=128, device="cpu", cov_impl="kernel")
-
-
-def test_cov_impl_reaches_every_sweep_of_the_large_branch(monkeypatch):
+def test_every_sweep_of_the_large_branch_goes_through_the_device_picked_engine(monkeypatch):
     """``oi_full``'s matrix-free branch (forced at a small size) sends every
-    sweep of the SLQ knee and the solve to the engine ``cov_impl`` names, and
-    the plain engine's result is the default's, bitwise."""
+    sweep of the SLQ knee and the solve through the one device-picked engine
+    (:func:`~oisat_tpu_torch.ops.kernels.b_matmat.b_matmat`), and a repeat is
+    bitwise."""
     calls = []
 
-    def spy(name):
-        real = BM.B_MATMAT_IMPLS[name]
+    def engine(*a):
+        calls.append(a[0].device.type)
+        return BM.b_matmat(*a)
 
-        def engine(*a):
-            calls.append(name)
-            return real(*a)
-        return engine
-
-    monkeypatch.setattr(M, "B_MATMAT_IMPLS", {name: spy(name) for name in BM.B_MATMAT_IMPLS})
+    monkeypatch.setitem(M._b_matmat.__kwdefaults__, "engine", engine)
     monkeypatch.setattr(T, "DENSE_SCAN_MAX_CELLS", 64)
     xa, y, sigb, sigo, lat, lon = (a.reshape(16, 32) for a in _small_args())
-    res = {}
-    for impl in ("auto", "plain"):
+    res = []
+    for _ in range(2):
         calls.clear()
-        res[impl] = T.oi_full(xa, y, sigb, sigo, lat, lon, L_KM, regularization_on=True,
-                              device="cpu", cov_impl=impl)
+        res.append(T.oi_full(xa, y, sigb, sigo, lat, lon, L_KM, regularization_on=True,
+                             device="cpu"))
         # 1 + SLQ_STEPS sweeps for the curve, then the solve's
-        assert len(calls) > 1 + T.SLQ_STEPS and set(calls) == {impl}
+        assert len(calls) > 1 + T.SLQ_STEPS and set(calls) == {"cpu"}
     for f in ("xb", "averaging_kernel", "increment", "error"):
-        assert np.array_equal(getattr(res["auto"], f), getattr(res["plain"], f), equal_nan=True)
+        assert np.array_equal(getattr(res[0], f), getattr(res[1], f), equal_nan=True)
+    assert BM.b_matmat_kernel.launches == 0
 
 
 # ---- the wide shape's six-product bf16 split (csrc/b_matmat.cu, K > 32) ------------

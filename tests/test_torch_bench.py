@@ -166,13 +166,12 @@ def test_headline_oi_matches_jax(capsys):
     for name in ("xb", "averaging_kernel", "increment", "error"):
         assert_parity(getattr(got, name).numpy(), np.asarray(getattr(want, name)), np.float32,
                       name)
-    for impl in ("auto", "plain"):
-        line = B.bench_oi(impl, f"oi_{impl}", H=64, W=128, reps=1, repeats=2, device="cpu")
-        assert _lines(capsys, 1)[0]["metric"] == line["metric"] == f"oi_{impl}"
-        d = line["detail"]
-        assert d["knee"] == int(want.reg_index) and d["repeats"] == 2
-        assert d["max_rel_diff_vs_f64_reference"] <= B.OI_RTOL
-        assert d["roofline"] == B.NOT_MEASURED and d["timer"] == "host_clock"
+    line = B.bench_oi(H=64, W=128, reps=1, repeats=2, device="cpu")
+    assert _lines(capsys, 1)[0]["metric"] == line["metric"] == "oi_analysis_throughput"
+    d = line["detail"]
+    assert d["knee"] == int(want.reg_index) and d["repeats"] == 2
+    assert d["max_rel_diff_vs_f64_reference"] <= B.OI_RTOL
+    assert d["roofline"] == B.NOT_MEASURED and d["timer"] == "host_clock"
 
 
 def test_curve_phase_matches_jax(capsys):

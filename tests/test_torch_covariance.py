@@ -112,17 +112,24 @@ def test_radians_follow_the_jax_rounding():
     assert torch.equal(cov.radians_f32(torch.as_tensor(deg), "cpu"), torch.as_tensor(got))
 
 
+def _plain(lat, lon, sig, length_scale_km, device):
+    """The plain version on the float32 radians and sigma that
+    ``build_covariance`` hands its engine."""
+    sig32 = torch.as_tensor(np.asarray(sig)).to(device).to(torch.float32)
+    return cov.build_covariance_plain(cov.radians_f32(lat, device), cov.radians_f32(lon, device),
+                                      sig32, float(length_scale_km))
+
+
 def test_cpu_tensors_take_the_plain_version():
     lat, lon, sig = _coords(40, seed=5)
     before = cov.build_covariance_kernel.launches
     a = cov.build_covariance(lat, lon, sig, 300.0, device="cpu")
-    b = cov.build_covariance(lat, lon, sig, 300.0, device="cpu", impl="plain")
+    b = _plain(lat, lon, sig, 300.0, "cpu")
     assert torch.equal(a, b)
     assert cov.build_covariance_kernel.launches == before
+    lat_r, lon_r = cov.radians_f32(lat, "cpu"), cov.radians_f32(lon, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        cov.build_covariance(lat, lon, sig, 300.0, device="cpu", impl="kernel")
-    with pytest.raises(ValueError, match="impl"):
-        cov.build_covariance(lat, lon, sig, 300.0, device="cpu", impl="pallas")
+        cov.build_covariance_kernel(lat_r, lon_r, torch.ones_like(lat_r), 300.0)
 
 
 # -- the CUDA kernel against the plain version, on the card ------------------
@@ -135,8 +142,10 @@ def cuda():
 
 
 def _both(lat, lon, sig, length_scale_km, device):
-    k = cov.build_covariance(lat, lon, sig, length_scale_km, device=device, impl="kernel")
-    p = cov.build_covariance(lat, lon, sig, length_scale_km, device=device, impl="plain")
+    before = cov.build_covariance_kernel.launches
+    k = cov.build_covariance(lat, lon, sig, length_scale_km, device=device)
+    assert cov.build_covariance_kernel.launches == before + 1
+    p = _plain(lat, lon, sig, length_scale_km, device)
     torch.cuda.synchronize()
     return k.cpu().numpy(), p.cpu().numpy()
 

@@ -21,7 +21,7 @@ import torch
 
 from oisat_tpu_torch.ops.kernels import _build, oi_scan
 from oisat_tpu_torch.ops.knee import kneedle_index_np
-from oisat_tpu_torch.ops.oi import curve_inputs, oi, regularization_grid
+from oisat_tpu_torch.ops.oi import curve_inputs, curve_of_shards, oi, regularization_grid
 
 pytestmark = pytest.mark.gpu
 
@@ -250,8 +250,13 @@ def test_oi_kernel_engine_matches_plain(cuda, dtype):
     for f in (xa, y, sa, so):
         f[rng.random(shape) < 0.15] = np.nan
     args = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in (xa, y, sa, so)]
-    rk = oi(*args, curve_impl="kernel")
-    rp = oi(*args, curve_impl="plain")
+    before = oi_scan.ak_curve_sums_kernel.launches
+    rk = oi(*args)
+    assert oi_scan.ak_curve_sums_kernel.launches == before + 1
+    # the same update with the plain curve on the card, through the curve hook
+    rp = oi(*args, curve_fn=lambda a, o, r: curve_of_shards([a], [o], r,
+                                                             oi_scan.ak_curve_sums_plain))
+    assert oi_scan.ak_curve_sums_kernel.launches == before + 1
     assert int(rk.reg_index) == int(rp.reg_index)
     for name in ("xb", "averaging_kernel", "increment", "error"):
         np.testing.assert_allclose(getattr(rk, name).cpu().numpy(),
@@ -386,7 +391,7 @@ def test_b_matmat_auto_launches_the_kernel_on_cuda(cuda):
     before = BM.b_matmat_kernel.launches
     got = M._b_matmat(u3, sb, v, 300.0, 1024)
     assert BM.b_matmat_kernel.launches == before + 1
-    plain = M._b_matmat(u3, sb, v, 300.0, 1024, impl="plain")
+    plain = M._b_matmat(u3, sb, v, 300.0, 1024, engine=BM.b_matmat_plain)
     assert BM.b_matmat_kernel.launches == before + 1
     scale = float(plain.abs().max())
     assert float((got - plain).abs().max()) <= 1e-5 * scale

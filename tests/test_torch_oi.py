@@ -55,7 +55,7 @@ def test_regularization_grid_is_the_reference_grid():
 def test_ak_curve_plain_matches_jax_scan_and_pallas(dt, seed):
     _, _, sa, so = make_fields(seed)
     regs = jax_oi.regularization_grid().astype(dt)
-    got = port_oi.ak_curve(_t(sa, dt), _t(so, dt), _t(regs, dt), curve_impl="plain")
+    got = port_oi.ak_curve(_t(sa, dt), _t(so, dt), _t(regs, dt))
     assert got.dtype == TDT[dt]
     want = np.asarray(jax_oi.ak_curve(jnp.asarray(sa, dt), jnp.asarray(so, dt),
                                       jnp.asarray(regs)))
@@ -160,12 +160,34 @@ def test_kernel_engine_refuses_cpu_tensors():
     _, _, sa, so = make_fields(0)
     regs = _t(port_oi.regularization_grid(), np.float64)
     with pytest.raises(ValueError, match="CUDA"):
-        port_oi.ak_curve(_t(sa, np.float64), _t(so, np.float64), regs,
-                         curve_impl="kernel")
-    with pytest.raises(ValueError, match="CUDA"):
         oi_scan.ak_curve_sums_kernel(_t(so, np.float64).ravel(), regs)
-    with pytest.raises(ValueError, match="curve_impl"):
-        port_oi.oi(*(_t(a, np.float64) for a in make_fields(0)), curve_impl="xla")
+
+
+def test_no_public_callable_above_the_kernels_takes_an_engine_option():
+    """The engine is picked by the tensor's device inside each kernel's
+    module: no public function or method of the layers above takes a
+    parameter naming one."""
+    import importlib
+    import inspect
+
+    seen = 0
+    for name in ("oisat_tpu_torch.driver", "oisat_tpu_torch.parallel.analysis",
+                 "oisat_tpu_torch.ops.oi", "oisat_tpu_torch.ops.oi_full",
+                 "oisat_tpu_torch.ops.oi_full_matfree"):
+        mod = importlib.import_module(name)
+        for attr, obj in vars(mod).items():
+            if attr.startswith("_") or getattr(obj, "__module__", None) != name:
+                continue
+            members = ([(f"{attr}.{m}", f) for m, f in vars(obj).items()
+                        if not m.startswith("_") and inspect.isfunction(f)]
+                       if inspect.isclass(obj) else [(attr, obj)])
+            for what, fn in members:
+                if not inspect.isfunction(fn):
+                    continue
+                seen += 1
+                params = inspect.signature(fn).parameters
+                assert not [p for p in params if p.endswith("impl")], f"{name}.{what}"
+    assert seen > 20
 
 
 @pytest.mark.parametrize("dt", [np.float32, np.float64])

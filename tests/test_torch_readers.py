@@ -272,6 +272,18 @@ def test_a_corrupt_file_becomes_none(monkeypatch, tmp_path, capsys):
             _assert_granules(g, w, False, "OMI_NO2")
 
 
+def test_an_all_bad_qa_granule_is_dropped(monkeypatch, tmp_path):
+    """tests/test_robustness.py's all-cloudy OMI file: every pixel fails the
+    cloud screen, the regridded VCD is all NaN and both readers drop the
+    granule (reference interpolator.py:165-167)."""
+    path = tmp_path / PRODUCTS["OMI_NO2"][2]
+    gen.write_omi_no2(path)
+    with h5py.File(path, "a") as f:
+        f["ANCILLARY_DATA"]["CloudFraction"][...] = 0.9
+    got, want = _read_both(monkeypatch, tmp_path, "OMI_NO2")
+    assert got == want == [None]
+
+
 def test_num_job_4_equals_num_job_1(tmp_path):
     """The thread pool decodes, the regrid runs one granule at a time: the
     same granules in the same order, bitwise."""

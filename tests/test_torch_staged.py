@@ -331,6 +331,36 @@ def test_averaging_two_month_window_matches_jax(monkeypatch, kind, weighting):
         port_averaging("2019-09-01", "2019-10-01", pobj.reader_obj)
 
 
+def test_averaging_multi_year_buckets_match_jax(monkeypatch):
+    """tests/test_pipeline.py's multi-year range (the GOSAT 2005-2019
+    reanalysis shape): June and July granules of 2010 and 2011 bucket into
+    (H, W, 12 months, 2 years), each bucket holding its own month's data,
+    as in the twin."""
+    monkeypatch.setenv("OISAT_PARITY", "1")
+    clon, clat = ctm_grid()
+    grans = []
+    for year in (2010, 2011):
+        for month in (6, 7):
+            g = jax_regrid_granule(1, 0.25, synthetic_granule(year + month, 4), clon, clat,
+                                   flag_thresh=0.5, device=False)
+            g.time = datetime.datetime(year, month, 15)
+            g.ctm_vcd = np.full_like(g.vcd, float(year + month))
+            g.new_amf = np.ones_like(g.vcd)
+            g.old_amf = np.ones_like(g.vcd)
+            grans.append(g)
+    pobj, jobj = _sessions([synthetic_ctm()], grans)
+    got = port_averaging("2010-06-01", "2011-08-01", pobj.reader_obj)
+    want = jax_averaging("2010-06-01", "2011-08-01", jobj.reader_obj)
+    for name, g, w in zip(FIELDS[:5], got, want):
+        assert isinstance(g, np.ndarray) and g.shape == clat.shape + (12, 2), name
+        _close(g, w, name)
+    assert got[5] == want[5]
+    for yi, year in enumerate((2010, 2011)):
+        for month in (6, 7):
+            vals = got[2][:, :, month - 1, yi]
+            np.testing.assert_allclose(vals[np.isfinite(vals)], year + month)
+
+
 def test_averaging_refuses_ak_weights_without_averaging_kernels(monkeypatch):
     pobj, _ = _sessions(*_month("ssmis"))
     pobj.cal_pwv()

@@ -170,3 +170,48 @@ def test_two_builds_are_bitwise_equal(cuda):
     a = build_plan_structured_kernel(lon, lat, tlon, tlat, threshold=threshold, device=cuda)
     b = build_plan_structured_kernel(lon, lat, tlon, tlat, threshold=threshold, device=cuda)
     assert_plans_bitwise(a, b, "repeat")
+
+
+# ---- the native builder at the antimeridian (tests/test_native.py's properties) ----
+
+def test_native_pixel_hash_reaches_antimeridian_isolated_pixels():
+    """The nearest-pixel scan walks a pixel hash, not quad corners: in a
+    2-column swath straddling the antimeridian, where every quad wraps and
+    is skipped, a target's nearest pixel is still found, as in the twin."""
+    from oisat_tpu import native as reference
+    from oisat_tpu_torch import native
+
+    lats = np.linspace(0.0, 10.0, 8)
+    lon2d = np.tile(np.array([179.5, -179.5]), (8, 1))
+    lat2d = np.tile(lats[:, None], (1, 2))
+    got = native.structured_weights(lon2d, lat2d, np.array([-179.4]), np.array([5.0]))
+    assert got is not None
+    _, _, dist, nn, _ = got
+    # the nearest pixel is in the -179.5 column at lat ~5.0 (flat ids 1, 3, 5, ..)
+    assert nn[0] % 2 == 1 and dist[0] < 0.8
+    want = reference.structured_weights(lon2d, lat2d, np.array([-179.4]), np.array([5.0]))
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_native_antimeridian_quads_do_not_claim_local_targets():
+    """A quad crossing the antimeridian spans ~360 deg of unwrapped
+    longitude; its sliver triangles overlap the swath elsewhere and must not
+    interpolate a local target: wrapped quads are skipped and the local
+    column pair wins, with the twin's plan bitwise."""
+    from oisat_tpu.ops import weights as reference
+
+    lats = np.linspace(0.0, 10.0, 12)
+    lon2d = np.tile(np.array([-1.0, 1.0, 179.0, -179.0]), (12, 1))  # the last pair wraps
+    lat2d = np.tile(lats[:, None], (1, 4))
+    tlon, tlat = np.meshgrid(np.array([0.0]), np.linspace(1.0, 9.0, 7))
+    kw = dict(threshold=3.0, method=1)
+    plan = build_plan_structured(lon2d, lat2d, tlon, tlat, **kw)
+    assert plan is not None
+    got = plan_to_torch(plan, "cpu")
+    inside = ~got.mask
+    assert bool(inside.any())  # local targets are inside the (-1, 1) column pair
+    cols = set(torch.unique(got.idx[inside] % 4).tolist())
+    assert cols <= {0, 1}, "an antimeridian sliver claimed a local target"
+    want = reference.build_plan_structured(lon2d, lat2d, tlon, tlat, **kw)
+    assert_plans_bitwise(got, plan_to_torch(want, "cpu"), "antimeridian quads")
