@@ -25,8 +25,12 @@ COPIES = {"h2d": 0, "d2h": 0}
 
 def positive_strides(x) -> np.ndarray:
     """``x`` as a numpy array torch can wrap: a view with a negative stride
-    (the CTM readers flip the level axis with ``np.flip``) is copied."""
+    (the CTM readers flip the level axis with ``np.flip``) is copied, and an
+    array in the other byte order (as an HDF5 file may store it) is copied
+    into the machine's, with its values and type kept."""
     a = np.asarray(x)
+    if not a.dtype.isnative:
+        return a.astype(a.dtype.newbyteorder("="))
     return a.copy() if any(s < 0 for s in a.strides) else a
 
 

@@ -12,10 +12,12 @@ oisatgmi/interpolator.py:100-291, interpolator_ssmis.py:96-168) for
          grid from its one copy on the device), every other plan
          on the host (the port's copies :mod:`oisat_tpu_torch.ops.weights`
          and :mod:`oisat_tpu_torch.native`: numpy/scipy/C++) and copied;
-  device stack every 2-D field and every level of every 3-D field into one
-         (F, Npix) batch -> gather + weighted sum -> box filter -> nearest
-         map onto the CTM grid, and the uncertainty through the same path
-         as a variance with the squared box kernel, sqrt at the end.
+  device copy each field as the reader hands it over, then on the device
+         apply the QA mask and the cast and stack every 2-D field and every
+         level of every 3-D field into one (F, Npix) batch -> gather +
+         weighted sum -> box filter -> nearest map onto the CTM grid, and
+         the uncertainty through the same path as a variance with the
+         squared box kernel, sqrt at the end.
 
 Under :class:`regrid_mesh` (or :func:`set_regrid_mesh`, which the job
 runner calls when ``mesh_devices`` > 1) the device pipeline runs over the
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import threading
 from typing import Optional
 
@@ -228,18 +231,87 @@ def _granule_plan(sat_lon, sat_lat, fine: _FineGrid, grid_size: float,
     return plan
 
 
-def _quality_mask(quality_flag, flag_thresh: float, dtype=np.float32) -> np.ndarray:
-    """QA mask as the reference builds it: 1.0 where flag > thresh else NaN
-    (interpolator.py:124-127), in the regridded fields' ``dtype``."""
-    m = (np.asarray(quality_flag) > flag_thresh).astype(dtype)
-    m[m != 1.0] = np.nan
-    return np.squeeze(m)
+def _regrid_dtype(dtype) -> torch.dtype:
+    """The type of a regrid's batch for its ``dtype``: float64 or float32,
+    as the JAX package's ``host_dtype``."""
+    return torch.float64 if dtype == np.float64 else torch.float32
 
 
-def _host_dtype(dtype):
-    """The numpy type of the host stack for a regrid's ``dtype``: float64 or
-    float32, as the JAX package's ``host_dtype``."""
-    return np.float64 if dtype == np.float64 else np.float32
+def _squeezed(shape) -> tuple:
+    """``shape`` without its unit axes (the shape ``np.squeeze`` gives)."""
+    return tuple(d for d in shape if d != 1)
+
+
+def _qa_mask(flag: np.ndarray, t: torch.Tensor, flag_thresh: float,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The QA mask as the reference builds it, on ``t``'s device: 1.0 where
+    the flag exceeds ``flag_thresh`` else NaN (interpolator.py:124-127), in
+    ``dtype``, squeezed.  ``t`` is the copy of the host ``flag``.  The
+    comparison is NumPy's: a floating flag against the threshold rounded to
+    the flag's type, any other flag in float64."""
+    if flag.dtype.kind == "f":
+        keep = t > float(np.asarray(flag_thresh, flag.dtype))
+    else:
+        keep = t.to(torch.float64) > float(flag_thresh)
+    return keep.to(dtype).masked_fill_(~keep, math.nan).reshape(_squeezed(flag.shape))
+
+
+def _device_rows(fields, on: dict, mask, dtype: torch.dtype) -> torch.Tensor:
+    """The (F, Npix) rows of ``fields`` (pairs of a host array and True for
+    a 3-D field, one row per level) built from their copies ``on`` (by the
+    host array's ``id``) on the copies' device: each row squeezed, cast to
+    ``dtype`` and multiplied by the QA ``mask`` (None: no mask), in the
+    order of ``fields``.  The values and NaNs are those of the host stack
+    ``np.stack([(np.asarray(row, dtype) * mask).ravel() for row in rows])``:
+    a row is read in the C order of its logical shape, whatever the layout
+    of its copy, and broadcast against the mask as NumPy broadcasts."""
+    mask_shape = () if mask is None else tuple(mask.shape)
+    parts = []
+    for a, levels in fields:
+        lead = a.shape[:1] if levels else ()
+        body = _squeezed(a.shape[len(lead):])
+        shape = np.broadcast_shapes(body, mask_shape)
+        src = on[id(a)].reshape(lead + (1,) * (len(shape) - len(body)) + body)
+        parts.append((src, lead, shape))
+    n_pix = {math.prod(shape) for _, _, shape in parts}
+    if len(n_pix) != 1:
+        raise ValueError(f"the batch's fields differ in their pixel counts: {sorted(n_pix)}")
+    out = torch.empty((sum(math.prod(lead) for _, lead, _ in parts), n_pix.pop()),
+                      dtype=dtype, device=parts[0][0].device)
+    i = 0
+    for src, lead, shape in parts:
+        n = math.prod(lead)
+        dst = out[i:i + n].view(lead + shape)
+        if mask is None:
+            dst.copy_(src)
+        else:
+            torch.mul(src.to(dtype), mask, out=dst)  # cast first, then the QA multiply
+        i += n
+    return out
+
+
+def _device_batch(fields, uncertainty, quality_flag, flag_thresh: float,
+                  dtype: torch.dtype, dev):
+    """One granule's (F, Npix) value batch of ``fields`` (as
+    :func:`_device_rows` takes them) and its (1, Npix) error row of
+    ``uncertainty``, built on ``dev``.  Span ``regrid.h2d``: each distinct
+    host array is copied once, in the type and layout the reader hands it
+    over.  Span ``regrid.stack``: the QA mask of ``quality_flag`` (None: no
+    mask), the cast and the stack, on ``dev``; counted as
+    ``regrid.batches_device``."""
+    unc = np.asarray(uncertainty)
+    flag = None if quality_flag is None else np.asarray(quality_flag)
+    with span("regrid.h2d"):
+        on: dict = {}
+        for a in [f for f, _ in fields] + [unc] + ([] if flag is None else [flag]):
+            if id(a) not in on:
+                on[id(a)] = to_device(a, dev)
+    with span("regrid.stack"):
+        mask = None if flag is None else _qa_mask(flag, on[id(flag)], flag_thresh, dtype)
+        batch = _device_rows(fields, on, mask, dtype)
+        err = _device_rows([(unc, False)], on, mask, dtype)
+        count("regrid.batches_device")
+    return batch, err
 
 
 def _regrid_device_impl(batch, err, idx, w, mask, up_idx, up_w, up_mask,
@@ -388,8 +460,9 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
     leaves) onto the CTM grid; returns a granule of the same kind whose
     fields are ``dtype`` (float32 or float64) tensors on ``device``, or None
     when the granule cannot be triangulated or misses the domain (reference
-    interpolator.py:151-155, :165-167).  The host stack, the QA mask and the
-    device batch all follow ``dtype``, as in the JAX ``regrid_granule``.
+    interpolator.py:151-155, :165-167).  The QA mask and the batch follow
+    ``dtype``, as the JAX ``regrid_granule``'s host stack does; they are
+    built on ``device`` from the fields as the granule holds them.
 
     ``fast_swath`` takes the native structured-swath weight builder
     (production); ``False`` takes the scipy qhull/cKDTree builders that
@@ -404,24 +477,20 @@ def regrid_granule(interpolator_type: int, grid_size: float, sat_data,
     with span("regrid"):
         return _regrid_granule(is_opt, interpolator_type, grid_size, sat_data, ctm_lon2d,
                                ctm_lat2d, resolve_device(device), flag_thresh, fast_swath,
-                               _host_dtype(dtype))
+                               _regrid_dtype(dtype))
 
 
 def _regrid_granule(is_opt: bool, interpolator_type: int, grid_size: float, sat_data,
                     ctm_lon2d, ctm_lat2d, dev, flag_thresh: float, fast_swath: bool,
-                    host_dtype):
+                    dtype: torch.dtype):
     plans = _regrid_plans(sat_data, ctm_lon2d, ctm_lat2d, grid_size, interpolator_type, 4,
                           2.0, fast_swath, dev)
     if plans is None:
         return None
     plan, upsc = plans
-    with span("regrid.stack"):
-        mask = _quality_mask(sat_data.quality_flag, flag_thresh, host_dtype)
-        names, rows = _batch_rows(sat_data, is_opt)
-        # cast first, then the QA multiply (mask is exactly 1.0 or NaN)
-        batch = np.stack([(np.asarray(r, host_dtype) * mask).ravel() for r in rows])
-        err = (np.asarray(np.squeeze(sat_data.uncertainty), host_dtype) * mask).ravel()[None]
-    batch, err = _to_device_pair(batch, err, dev)
+    names, fields = _batch_fields(sat_data, is_opt)
+    batch, err = _device_batch(fields, sat_data.uncertainty, sat_data.quality_flag,
+                               flag_thresh, dtype, dev)
     with span("regrid.apply"):
         out, out_err, hw = _run_regrid(plan, upsc, batch, err, square_err=True)
         d = _finish_device_fields(out, out_err, tuple(names), hw)
@@ -477,48 +546,39 @@ def _regrid_plans(sat_data, ctm_lon2d, ctm_lat2d, grid_size, method: int,
                                    far_factor=far_factor, fast=fast)
 
 
-def _batch_rows(sat_data, is_opt: bool):
-    """(names, rows) of the value batch: the 2-D fields, then every level of
-    the 3-D fields as ``"name:z"`` rows (host arrays, not yet cast)."""
+def _batch_fields(sat_data, is_opt: bool):
+    """(names, fields) of the value batch: the names of its rows, the 2-D
+    fields and then every level of the 3-D fields as ``"name:z"`` rows, and
+    the host arrays that fill them as (array, is 3-D) pairs, as the reader
+    hands them over.  The layout is decided from the host arrays alone."""
     names: list = []
-    rows: list = []
+    fields: list = []
 
-    def add2d(name, arr):
-        names.append(name)
-        rows.append(np.squeeze(np.asarray(arr)))
-
-    def add3d(name, arr):
+    def add(name, arr, levels: bool = False):
         a = np.asarray(arr)
-        for z in range(a.shape[0]):
-            names.append(f"{name}:{z}")
-            rows.append(np.squeeze(a[z]))
+        names.extend([f"{name}:{z}" for z in range(a.shape[0])] if levels else [name])
+        fields.append((a, levels))
 
-    add2d("vcd", sat_data.vcd)
+    add("vcd", sat_data.vcd)
     if not is_opt:
-        add2d("amf", sat_data.amf)
+        add("amf", sat_data.amf)
     if np.size(sat_data.tropopause) != 1:
-        add2d("tropopause", sat_data.tropopause)
+        add("tropopause", sat_data.tropopause)
     if not is_opt and np.size(sat_data.scattering_weights) != 1:
-        add3d("scattering_weights", sat_data.scattering_weights)
-        add3d("pressure_mid", sat_data.pressure_mid)
+        add("scattering_weights", sat_data.scattering_weights, True)
+        add("pressure_mid", sat_data.pressure_mid, True)
     if is_opt:
         # all-zero placeholders (np.zeros((1,)) of the readers) stay out
         for name in ("aprior_column", "surface_pressure", "apriori_surface"):
             if np.asarray(getattr(sat_data, name)).any():
-                add2d(name, getattr(sat_data, name))
-        add2d("x_col", sat_data.x_col)
-        add3d("averaging_kernels", sat_data.averaging_kernels)
+                add(name, getattr(sat_data, name))
+        add("x_col", sat_data.x_col)
+        add("averaging_kernels", sat_data.averaging_kernels, True)
         if sat_data.sensor == "GOSAT":
-            add3d("pressure_weight", sat_data.pressure_weight)
-        add3d("pressure_mid", sat_data.pressure_mid)
-        add3d("apriori_profile", sat_data.apriori_profile)
-    return names, rows
-
-
-def _to_device_pair(batch, err, dev):
-    """The value batch and the error row onto ``dev``."""
-    with span("regrid.h2d"):
-        return to_device(batch, dev), to_device(err, dev)
+            add("pressure_weight", sat_data.pressure_weight, True)
+        add("pressure_mid", sat_data.pressure_mid, True)
+        add("apriori_profile", sat_data.apriori_profile, True)
+    return names, fields
 
 
 def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
@@ -546,11 +606,8 @@ def regrid_ssmis_granule(grid_size: float, sat_data, ctm_lon2d: np.ndarray,
         if plans is None:
             return None
         plan, upsc = plans
-        host_dtype = _host_dtype(dtype)
-        with span("regrid.stack"):
-            batch = np.asarray(sat_data.vcd, host_dtype).ravel()[None]
-            err = np.asarray(sat_data.uncertainty, host_dtype).ravel()[None]
-        batch, err = _to_device_pair(batch, err, dev)
+        batch, err = _device_batch([(np.asarray(sat_data.vcd), False)], sat_data.uncertainty,
+                                   None, 0.0, _regrid_dtype(dtype), dev)
         with span("regrid.apply"):
             out, out_err, hw = _run_regrid(plan, upsc, batch, err, square_err=False)
             vcd = out[0].reshape(hw)

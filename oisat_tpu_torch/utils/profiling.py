@@ -24,7 +24,7 @@ One registry holds four kinds of record:
   each mark also records its stage as a span.
 
 The month path's spans: ``regrid`` (one granule) with ``regrid.plan``,
-``regrid.stack``, ``regrid.h2d``, ``regrid.apply`` and
+``regrid.h2d``, ``regrid.stack``, ``regrid.apply`` and
 ``regrid.domain_check``; ``assemble.ctm_fields``, ``assemble.h2d``,
 ``assemble.map`` and ``assemble.stack`` inside the fused month's ``assemble``
 stage; ``oi.scalar`` (the scalar OI: the curve, its pull, the knee) inside
@@ -35,7 +35,9 @@ stage; ``oi.scalar`` (the scalar OI: the curve, its pull, the knee) inside
 ``syncs`` (each time the host waits on the device, measurement's own
 synchronises aside), ``regrid.plan_builds_device`` /
 ``regrid.plan_builds_host`` (each regrid plan built on a cache miss, by the
-card's kernel or on the host), ``assemble.slices_device`` (each matched CTM
+card's kernel or on the host), ``regrid.batches_device`` (each granule whose
+value batch was built on its device from the raw fields),
+``assemble.slices_device`` (each matched CTM
 slice whose operator fields were derived on the device), and
 ``oi_full.exact_cells`` /
 ``oi_full.exact_bytes`` (the cells the full OI's exact float64 branch

@@ -216,3 +216,42 @@ def test_syncs_count_every_wait_of_the_month(name, monkeypatch):
     # for the knee and the month's one pull
     assert counters["syncs"] == len(moved) + len(raw) + 2
     assert counters["syncs"] >= len(raw)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_every_granule_batch_is_built_on_its_device(name):
+    raw, run = _tiny_month(name, 14)
+    _, counters = _traced(run)
+    assert counters["regrid.batches_device"] == len(raw)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_granule_copies_its_raw_fields_and_no_host_cast(name, monkeypatch):
+    from benchmark import generators, program
+    from benchmark.reference import granule_kind
+    from benchmark.tests.tiny import tiny_cell
+    from oisat_tpu_torch.ops import regrid as ops_regrid
+    from oisat_tpu_torch.regridder import regrid_granule
+
+    cell = tiny_cell(name)
+    raw, _, lon2d, lat2d = generators.make_month(cell.config, 15)
+    g, reg = raw[0], cell.config["regrid"]
+    kind = granule_kind(g["kind"])
+
+    def regrid():
+        return regrid_granule(reg["interpolator_type"], reg["grid_size"], program.to_granule(g),
+                              lon2d, lat2d, "cpu", flag_thresh=reg["flag_thresh"])
+
+    assert regrid() is not None  # the plans are cached from here on
+    index_rows = []  # the box filter's index copies (none where it passes through)
+    real = ops_regrid.to_device
+
+    def spy(x, *args, **kwargs):
+        index_rows.append(np.asarray(x).nbytes)
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(ops_regrid, "to_device", spy)
+    _, counters = _traced(regrid)
+    fields = kind.FIELDS2 + kind.FIELDS3 + ("uncertainty", "quality_flag")
+    assert counters["h2d.bytes"] - sum(index_rows) == sum(g[f].nbytes for f in fields)
+    assert counters["regrid.batches_device"] == 1
