@@ -63,16 +63,17 @@ Phases (any failure raises, exit code != 0):
    OMI-shaped orbits crossing the CONUS window of the MERRA2-GMI grid
    (57 x 99 = 5,643 cells, ``entry.synthetic_regional_month``), a 72-level
    8-snapshot CTM, regridded with plans built on the card, then
-   ``analyze_month_fused``: the dense eigen scan with the covariance kernel
-   and the float64 exact tail on the card.  Checks: covariance launches
-   > 0, solver "dense+direct_f64_dev", the sampled float64 residual under
-   the gate, every orbit's plan built by the swath plan kernel, a finite
-   posterior wherever prior
-   and observation are, the kernel bitwise equal to the plain version and
-   the plain B bitwise symmetric on the month's own compacted cells (so
-   the plain version's month would pick the identical factor and fields:
-   the tail never reads B, and the factor holds only while B is bitwise
-   equal), and a warm repeat picking the identical factor.  The driver's
+   ``analyze_month_fused``: the dense eigen scan in float64 (its
+   C = D^-1 B D^-1 from the covariance source's float64 kernel) and the
+   float64 exact tail on the card.  Checks: one float64 correlation
+   launch and no float32 covariance launch, solver "dense+direct_f64_dev",
+   the sampled float64 residual under the gate, every orbit's plan built
+   by the swath plan kernel, a finite posterior wherever prior and
+   observation are; on the month's own compacted cells the float64 kernel
+   within rtol 1e-12 of its plain version, bitwise symmetric and bitwise
+   repeatable, and the float32 kernel bitwise equal to its plain version
+   (the dense solve without the scan builds its B with it); and a warm
+   repeat picking the identical factor.  The driver's
    and ``oi_full``'s own stage times (``stage_ms``: assembly, step, pull,
    compaction, covariance, eigh, the scan's GEMMs, knee, tail, residual,
    ...) for the first run and the warm repeat, and the peak device memory.
@@ -103,7 +104,8 @@ Phases (any failure raises, exit code != 0):
     binned, a repeat is bitwise equal, 3 kernel launches per call.  On phase
     7's CONUS month ``analyze_month_fused(oi_method="full",
     desroziers_iterations=1)`` finishes with finite fields and reports
-    ``desroziers_iterations``.
+    ``desroziers_iterations``, its two float64 scans launching the float64
+    correlation kernel twice and the float32 covariance kernel never.
 
 12. The job runner on the card: control dictionaries with the keys of
     ``run/control.yml`` go through ``oisat_tpu_torch.run.job._analyze``, on
@@ -115,8 +117,8 @@ Phases (any failure raises, exit code != 0):
     (d) phase 7's CONUS month with ``oi_method: full``, ``length_scale_km:
     300``.  Each is held to the direct driver call on the same granules (the
     same factor; fields within that phase's tolerance: rtol 1e-5, the
-    staged bound, 1e-9), the two kernels' launch counts rise by exactly what
-    the path launches, and the wall seconds stand beside the direct call's.
+    staged bound, 1e-9), the kernels' launch counts rise by exactly what
+    the path launches (at (d) one float64 correlation), and the wall seconds stand beside the direct call's.
     ``_diag_fields()`` of (a): the 11 names, float arrays of the grid's
     shape, the scaling factor equal to a numpy recomputation (NaN / inf / 0
     -> 1.0), no device->host copy for fields the month already pulled and
@@ -143,7 +145,8 @@ Phases (any failure raises, exit code != 0):
     residual under the gate), a warm repeat bitwise equal, and the float32
     Nystrom PCG on the same inputs and factor within twice its
     ``resid_abs`` of the direct increment.  (c) The SLQ curve on phase 7's
-    CONUS cells within rtol 0.04 of the dense scan's, and the Jacobi branch
+    CONUS cells within rtol 0.04 of the card's float64 dense scan's (the
+    float32 scan's knee logged beside it), and the Jacobi branch
     on a 64 x 64 one-degree window against the dense solve
     (tests/test_oi_full.py's bounds); both calls of (c) run again with every
     sweep on the plain version (``_b_matmat``'s engine seam): the same SLQ
@@ -223,7 +226,9 @@ numpy seeds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its launches on its path, error, times and bound:
-``ak_curve``, ``covariance``, ``ak_curve_sharded`` (the same
+``ak_curve``, ``covariance``, ``correlation_f64`` (the same
+``covariance.cu``'s float64 C of the dense scan, launched once per full OI
+of phases 7, 11 and 12d), ``ak_curve_sharded`` (the same
 ``ak_curve.cu``, launched once per grid shard on phase 14's mesh paths) and
 ``b_matmat`` (the B.V sweep, at 13a's PCG shape, the other shapes of 13d
 in ``other_shapes``).
@@ -527,6 +532,7 @@ def phase_full_month(dev, cov, oi_scan):
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9
     cov.build_covariance_kernel.launches = 0
+    cov.whitened_correlation_kernel.launches = 0
     oi_scan.ak_curve_sums_kernel.launches = 0
     swath_plan.build_plan_structured_kernel.launches = 0
     # ---- the main path of this slice: regrid every orbit, the full month ----
@@ -538,11 +544,15 @@ def phase_full_month(dev, cov, oi_scan):
     reader = SimpleNamespace(ctm_data=[ctm], sat_data=grans)
     obj, out, month_s, stage_ms = full_month(reader, dev)
     cov_launches = cov.build_covariance_kernel.launches
+    corr_launches = cov.whitened_correlation_kernel.launches
     curve_launches = oi_scan.ak_curve_sums_kernel.launches
     # ---- end of the main path ----
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(g is not None for g in grans), "an orbit missed the CONUS window")
-    check(cov_launches > 0, "the full-covariance month never launched the covariance kernel")
+    check(cov_launches == 0, f"the card's float64 scan launched the float32 covariance "
+          f"kernel {cov_launches} times")
+    check(corr_launches == 1, f"the month's float64 scan launched the float64 correlation "
+          f"kernel {corr_launches} times, not once")
     check(plan_launches >= len(orbits), f"the swath plan kernel built {plan_launches} plans "
           f"for {len(orbits)} orbits")
     diag = obj.oi_diagnostics
@@ -563,7 +573,8 @@ def phase_full_month(dev, cov, oi_scan):
     log(f"full month: {int(both.sum())} valid cells, sigma_b/sigma_o median "
         f"{np.median(ratio):.1f}, max sigma_b / min sigma_o "
         f"{np.max(0.5 * xa[both]) / np.min(so[both]):.1f}; covariance launches "
-        f"{cov_launches}, ak_curve launches {curve_launches}; solver {diag['solver']}, "
+        f"{cov_launches}, float64 correlation launches {corr_launches}, ak_curve launches "
+        f"{curve_launches}; solver {diag['solver']}, "
         f"factor {diag['reg']:.1f} (index {reg_index}), f64_resid {diag['f64_resid']:.3e} "
         f"(gate {DEVICE_EXACT_RESID_GATE:g})")
     log(f"full month: innovation n={int(diag['n'])} OmB {diag['omb_mean']:+.4f}/"
@@ -575,7 +586,8 @@ def phase_full_month(dev, cov, oi_scan):
     log_stages("full month, first run (kernel engine)", stage_ms, month_s)
 
     # the covariance kernel against its plain version on the month's own B
-    # inputs: the compaction oi_full runs on the fields the driver gives it
+    # inputs (the compaction oi_full runs on the fields the driver gives it):
+    # the dense solve without the scan builds its B with the kernel
     cp = compact(*obj.full_oi_inputs())
     n = cp.idx.size
     args = (cov.radians_f32(cp.lat, dev), cov.radians_f32(cp.lon, dev),
@@ -587,6 +599,7 @@ def phase_full_month(dev, cov, oi_scan):
     log(f"full month covariance at n = {n} (CUDA events): kernel {k_ms:.4f} ms, plain "
         f"{p_ms:.4f} ms, bound {bms:.4f} ms ({by}), max_abs_err {cov_err:.3e} "
         f"(bitwise equal to plain)")
+    corr = phase_correlation_f64(dev, cov, cp)
 
     again, _, again_s, again_ms = full_month(reader, dev)
     check(again.oi_diagnostics["reg"] == diag["reg"], "a second kernel-engine run "
@@ -594,7 +607,45 @@ def phase_full_month(dev, cov, oi_scan):
     log_stages("full month, kernel engine again (warm)", again_ms, again_s)
     return dict(launches=cov_launches, plan_launches=plan_launches, err=cov_err, ms=k_ms,
                 plain_ms=p_ms, bound_ms=bms, bound_by=by, cells=n, reader=reader, direct=obj,
-                direct_s=again_s, orbits=orbits, ctm=ctm, grid=(lon2d, lat2d))
+                direct_s=again_s, orbits=orbits, ctm=ctm, grid=(lon2d, lat2d),
+                corr=dict(corr, launches=corr_launches))
+
+
+def phase_correlation_f64(dev, cov, cp) -> dict:
+    """The float64 correlation kernel against its plain version on a
+    month's compacted cells ``cp``, as the float64 scan calls it: within
+    rtol 1e-12 (the dot product's two FMAs against cuBLAS's own order,
+    times kappa ~ 451), bitwise symmetric and bitwise repeatable; its time
+    beside the plain version's and the bound."""
+    from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM
+
+    n = cp.idx.size
+    f64 = torch.float64
+    la, lo = (torch.deg2rad(torch.as_tensor(v, dtype=f64, device=dev)) for v in (cp.lat, cp.lon))
+    u3 = torch.stack([torch.cos(la) * torch.cos(lo), torch.cos(la) * torch.sin(lo),
+                      torch.sin(la)], dim=1)
+    s = torch.as_tensor(cp.sb / cp.so, dtype=f64, device=dev)
+    kappa = (EARTH_RADIUS_KM / LENGTH_SCALE_KM) ** 2
+    k = cov.whitened_correlation_kernel(u3, s, kappa)
+    k2 = cov.whitened_correlation_kernel(u3, s, kappa)
+    p = cov.correlation_plain(u3, kappa, s)
+    torch.cuda.synchronize()
+    check(torch.equal(k, k2), "two float64 correlation kernel runs differ")
+    check(torch.equal(k, k.T), "the float64 correlation kernel's C is not bitwise symmetric")
+    rel = float(((k - p).abs() / p.abs().clamp(min=1e-300)).max())  # 0 / 0 where s = 0
+    check(rel <= 1e-12, f"float64 correlation kernel vs plain: relative error {rel:.3e}")
+    del k, k2, p
+    ms = cuda_ms(lambda: cov.whitened_correlation_kernel(u3, s, kappa), reps=20)
+    plain_ms = cuda_ms(lambda: cov.correlation_plain(u3, kappa, s), reps=5)
+    # u3 and s read once, C written once; per computed element (the upper
+    # tiles) one mul, two FMAs (4), the clip, a sub, a mul, the floor, exp
+    # (counted once) and two muls
+    upper = n * (n + 64) / 2
+    bms, by = bound_ms(32 * n + 8 * n * n, 12 * upper, f64)
+    log(f"float64 correlation at n = {n} (CUDA events): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), kernel at {bms / ms:.1%} of it; "
+        f"largest relative error {rel:.3e}, bitwise symmetric")
+    return dict(err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, cells=n)
 
 
 def phase_swath_plan(dev, orbit, lon2d, lat2d) -> dict:
@@ -1002,8 +1053,8 @@ def phase_ssmis(dev, oi_scan, grid):
 def phase_desroziers(oi_scan, cov, mopitt, full_reader):
     """Desroziers re-estimation on phase 8's averaged fields (scalar OI,
     global and 4 latitude bands) and on phase 7's CONUS month (full OI).
-    Returns (ak_curve launches of the scalar runs, covariance launches of
-    the full run)."""
+    Returns (ak_curve launches of the scalar runs, float64 correlation
+    launches of the full run)."""
     from oisat_tpu_torch.driver import oisatgmi
 
     log("== phase 11: Desroziers re-estimation")
@@ -1052,6 +1103,7 @@ def phase_desroziers(oi_scan, cov, mopitt, full_reader):
     obj.reader_obj = full_reader
     stage_ms: dict = {}
     cov.build_covariance_kernel.launches = 0
+    cov.whitened_correlation_kernel.launches = 0
     # ---- main path: the full-covariance month with one re-estimation pass ----
     t0 = time.perf_counter()
     out = obj.analyze_month_fused("OMI", "NO2", *MONTH, oi_method="full",
@@ -1060,9 +1112,11 @@ def phase_desroziers(oi_scan, cov, mopitt, full_reader):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     cov_launches = cov.build_covariance_kernel.launches
+    corr_launches = cov.whitened_correlation_kernel.launches
     # ---- end ----
-    check(cov_launches == 2, f"full-covariance Desroziers: {cov_launches} covariance "
-          "launches for 2 solves")
+    check((cov_launches, corr_launches) == (0, 2), f"full-covariance Desroziers: "
+          f"(covariance, float64 correlation) launches {(cov_launches, corr_launches)} "
+          "for 2 float64 scans")
     d = obj.oi_diagnostics
     check(d.get("desroziers_iterations") == 1 and "desroziers_sa_scale" in d,
           f"full-covariance Desroziers diagnostics {d}")
@@ -1076,8 +1130,8 @@ def phase_desroziers(oi_scan, cov, mopitt, full_reader):
         f"oi_full {stage_ms.get('oi_full', 0.0):.1f} ms for 2 solves; Sa "
         f"x{d['desroziers_sa_scale']:.4g}, So x{d['desroziers_so_scale']:.4g}, chi2 "
         f"{d['chi2']:.4g}, factor {d.get('reg')}, solver {d.get('solver')}; "
-        f"{cov_launches} covariance launches")
-    return total, cov_launches
+        f"{corr_launches} float64 correlation launches")
+    return total, corr_launches
 
 
 def job_control(sensor: str, gas: str, **over) -> dict:
@@ -1113,11 +1167,12 @@ def quietly(fn, *args, **kw):
     return out, text.getvalue()
 
 
-def job_analyze(reader, ctrl, oi_scan, cov, want_curve: int, want_cov: int, what: str):
-    """One batch of granules through the job runner's ``_analyze`` with both
+def job_analyze(reader, ctrl, oi_scan, cov, want_curve: int, want_cov: int, what: str,
+                want_corr: int = 0):
+    """One batch of granules through the job runner's ``_analyze`` with the
     kernels' counts set to 0 just before and read just after: (session, wall
     seconds, what the run printed).  Fails unless the counts rose by exactly
-    ``want_curve`` / ``want_cov``."""
+    ``want_curve`` / ``want_cov`` / ``want_corr`` (the float64 correlation)."""
     from oisat_tpu_torch.driver import oisatgmi
     from oisat_tpu_torch.run.job import _analyze
 
@@ -1125,16 +1180,19 @@ def job_analyze(reader, ctrl, oi_scan, cov, want_curve: int, want_cov: int, what
     obj.reader_obj = reader
     oi_scan.ak_curve_sums_kernel.launches = 0
     cov.build_covariance_kernel.launches = 0
+    cov.whitened_correlation_kernel.launches = 0
     # ---- the main path of this slice: the job runner's dispatch ----
     t0 = time.perf_counter()
     _, said = quietly(_analyze, obj, ctrl, ctrl["sensor"], ctrl["gas"], *MONTH,
                       savedaily=("diag", "2019_07"))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = (oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches)
+    got = (oi_scan.ak_curve_sums_kernel.launches, cov.build_covariance_kernel.launches,
+           cov.whitened_correlation_kernel.launches)
     # ---- end of the main path ----
-    check(got == (want_curve, want_cov), f"{what}: (ak_curve, covariance) launches {got}, "
-          f"the path should launch {(want_curve, want_cov)}")
+    want = (want_curve, want_cov, want_corr)
+    check(got == want, f"{what}: (ak_curve, covariance, float64 correlation) launches "
+          f"{got}, the path should launch {want}")
     return obj, secs, said
 
 
@@ -1160,9 +1218,10 @@ def assert_job_equals_direct(job, direct, rtol: float, atol_scale: float, what: 
 
 
 def log_job(what: str, job_s: float, direct_s: float, bitwise: bool, launches) -> None:
+    names = ", ".join(("ak_curve", "covariance", "float64 correlation")[:len(launches)])
     log(f"{what}: _analyze {job_s:.3f} s, the direct driver call {direct_s:.3f} s (host "
-        f"clock); fields {'bitwise equal' if bitwise else 'within tolerance'}; (ak_curve, "
-        f"covariance) launches {launches}")
+        f"clock); fields {'bitwise equal' if bitwise else 'within tolerance'}; ({names}) "
+        f"launches {launches}")
 
 
 def check_diag_fields(job, dev, hw) -> None:
@@ -1282,15 +1341,15 @@ def phase_job_conus(dev, oi_scan, cov, full, grid):
     # 12d: the full-covariance month, oi_method: full
     ctrl = job_control("OMI", "NO2", fused_month=True, oi_method="full",
                        length_scale_km=LENGTH_SCALE_KM)
-    job, secs, _ = job_analyze(full["reader"], ctrl, oi_scan, cov, 0, 1,
-                               "12d CONUS full month")
+    job, secs, _ = job_analyze(full["reader"], ctrl, oi_scan, cov, 0, 0,
+                               "12d CONUS full month", want_corr=1)
     direct = full["direct"]
     bitwise = assert_job_equals_direct(job, direct, FULL_RTOL, 0.0, "12d CONUS full month")
     for key in ("reg", "solver"):
         check(job.oi_diagnostics[key] == direct.oi_diagnostics[key],
               f"12d: {key} {job.oi_diagnostics[key]} vs {direct.oi_diagnostics[key]}")
     log_job(f"12d CONUS month (oi_method: full, length_scale_km: {LENGTH_SCALE_KM:g})", secs,
-            full["direct_s"], bitwise, (0, 1))
+            full["direct_s"], bitwise, (0, 0, 1))
 
     # 12c: the same orbits as read with read_AK: false -- no scattering weights
     bare = [dataclasses.replace(o, scattering_weights=np.empty((1,))) for o in full["orbits"]]
@@ -1591,8 +1650,9 @@ def phase_matfree_north_america(dev, oi_scan, cov, sweep):
 
 def phase_matfree_vs_dense(dev, full, grid, sweep):
     """Phase 13c: (i) the SLQ curve on phase 7's compacted CONUS cells against
-    the dense scan's curve (rtol 0.04; the SLQ and dense knees are logged,
-    not held: that regime's knee is rounding-sensitive), and the same curve
+    the card's float64 dense scan's curve (rtol 0.04; the SLQ, float64 and
+    float32 dense knees are logged, not held: the SLQ estimate's and the
+    float32 scan's are rounding-sensitive in that regime), and the same curve
     with every sweep on the plain version (:func:`plain_sweeps`), whose knee
     must be the kernel's; (ii) the Jacobi branch against the dense solve on a
     64 x 64 one-degree window with bench.bench_matfree's mild fields
@@ -1602,7 +1662,8 @@ def phase_matfree_vs_dense(dev, full, grid, sweep):
     launches."""
     from oisat_tpu_torch.ops.knee import kneedle_index_np
     from oisat_tpu_torch.ops.oi_full import (compact, mean_ak_curve_slq, oi_full_dense,
-                                             oi_full_dense_scan, oi_full_matfree)
+                                             oi_full_dense_scan, oi_full_dense_scan_f64,
+                                             oi_full_matfree)
 
     cp = compact(*full["direct"].full_oi_inputs())
     vec = [torch.as_tensor(v.astype(np.float32), device=dev)
@@ -1620,13 +1681,18 @@ def phase_matfree_vs_dense(dev, full, grid, sweep):
     slq_plain_s = time.perf_counter() - t0
     check(kneedle_index_np(grid, slq) == kneedle_index_np(grid, slq_plain),
           "13c: the SLQ knee moved with the plain sweep engine")
-    dense = oi_full_dense_scan(*vec, LENGTH_SCALE_KM, grid.astype(np.float32))[5]
-    dense = dense.cpu().numpy().astype(np.float64)
+    dense = oi_full_dense_scan_f64(*(v.double() for v in vec), LENGTH_SCALE_KM, grid)[5]
+    dense = dense.cpu().numpy()
+    dense32 = oi_full_dense_scan(*vec, LENGTH_SCALE_KM, grid.astype(np.float32))[5]
+    dense32 = dense32.cpu().numpy().astype(np.float64)
     np.testing.assert_allclose(slq, dense, rtol=0.04, err_msg="13c SLQ vs dense scan curve")
     log(f"13c (i) SLQ curve on the CONUS month's {cp.idx.size} cells (64 probes, "
-        f"{slq_s:.3f} s) within rtol 0.04 of the dense scan's (largest "
+        f"{slq_s:.3f} s) within rtol 0.04 of the float64 dense scan's (largest "
         f"{float(np.max(np.abs(slq / dense - 1.0))):.2e}); knees: SLQ "
-        f"{grid[kneedle_index_np(grid, slq)]:.1f}, dense {grid[kneedle_index_np(grid, dense)]:.1f}"
+        f"{grid[kneedle_index_np(grid, slq)]:.1f}, dense float64 "
+        f"{grid[kneedle_index_np(grid, dense)]:.1f}, dense float32 "
+        f"{grid[kneedle_index_np(grid, dense32)]:.1f} (its curve "
+        f"{float(np.max(np.abs(dense32 / dense - 1.0))):.2e} off the float64 one)"
         f"; plain sweep engine {slq_plain_s:.3f} s, the same knee, curves "
         f"{float(np.max(np.abs(slq / slq_plain - 1.0))):.2e} apart (rtol)")
 
@@ -2641,16 +2707,16 @@ def main() -> int:
         mopitt_cells, sweep_paths = phase_matfree_mopitt(dev, oi_scan, cov, sweep, mopitt,
                                                          regs_np)
     sweep_paths = {"mopitt_oi_full_13a": sweep_paths}
-    by_path["desroziers_mopitt"], cov_desroziers = phase_desroziers(oi_scan, cov, mopitt,
-                                                                    full["reader"])
+    by_path["desroziers_mopitt"], corr_desroziers = phase_desroziers(oi_scan, cov, mopitt,
+                                                                     full["reader"])
     del mopitt
     torch.cuda.empty_cache()
     _, by_path["gosat_staged_and_fused"], gosat_shape, _ = phase_gosat(dev, oi_scan, regs_np)
     torch.cuda.empty_cache()
     _, by_path["ssmis_staged_and_fused"], ssmis_shape, _ = phase_ssmis(dev, oi_scan, regs_np)
     torch.cuda.empty_cache()
-    by_path["job_omi_fallback_staged"], cov_job = phase_job_conus(dev, oi_scan, cov, full,
-                                                                  regs_np)
+    by_path["job_omi_fallback_staged"], corr_job = phase_job_conus(dev, oi_scan, cov, full,
+                                                                   regs_np)
     north_america_cells, sweep_paths["north_america_month_13b"] = phase_matfree_north_america(
         dev, oi_scan, cov, sweep)
     jacobi, sweep_paths["slq_and_jacobi_13c"] = phase_matfree_vs_dense(dev, full, regs_np, sweep)
@@ -2755,17 +2821,34 @@ def main() -> int:
         "pixels": plan_check["pixels"],
         "dtype": "float64",
     }
+    corr = full["corr"]
+    corr_paths = {"omi_full_month": corr["launches"], "desroziers_full_month": corr_desroziers,
+                  "job_omi_full_month": corr_job}
+    log(f"float64 correlation launches on the driven paths: {corr_paths}")
+    corr_entry = {
+        "name": "correlation_f64",
+        "route": "cuda",
+        "source": "oisat_tpu_torch/csrc/covariance.cu",
+        "replaces": "oisat_tpu/ops/kernels/covariance.py:32",  # B of the JAX dense scan
+        "launches": sum(corr_paths.values()),
+        "launches_by_path": corr_paths,
+        "max_abs_err": corr["err"],  # here the largest relative error
+        "ms": corr["ms"],
+        "plain_ms": corr["plain_ms"],
+        "bound_ms": corr["bound_ms"],
+        "bound_by": corr["bound_by"],
+        "library_ms": None,  # no single PyTorch call builds C
+        "cells": corr["cells"],
+        "dtype": "float64",
+    }
     log(f"nvidia-smi: {smi_line()}")
     print(json.dumps({"kernels": [curve_entry, {
         "name": "covariance",
         "route": "cuda",
         "source": "oisat_tpu_torch/csrc/covariance.cu",
         "replaces": "oisat_tpu/ops/kernels/covariance.py:32",
-        "launches": full["launches"] + cov_desroziers + cov_job + cov_bench,
-        "launches_by_path": {"omi_full_month": full["launches"],
-                             "desroziers_full_month": cov_desroziers,
-                             "job_omi_full_month": cov_job,
-                             "bench_rows": cov_bench},
+        "launches": full["launches"] + cov_bench,
+        "launches_by_path": {"omi_full_month": full["launches"], "bench_rows": cov_bench},
         "max_abs_err": full["err"],
         "ms": full["ms"],
         "plain_ms": full["plain_ms"],
@@ -2774,7 +2857,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call builds B
         "cells": full["cells"],
         "dtype": "float32",
-    }, sharded_entry, sweep_entry, plan_entry]}), flush=True)
+    }, corr_entry, sharded_entry, sweep_entry, plan_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

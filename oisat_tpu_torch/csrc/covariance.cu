@@ -63,10 +63,31 @@
 //    and the scan's GEMMs read it as it is; its rows are not 16-byte aligned
 //    at odd N, which rules out a TMA store.  There is no reduction, so the
 //    result is bitwise repeatable.
-//  * Not here: the matrix-free path's on-the-fly B V tiles (_b_matmat in
-//    oisat_tpu/ops/oi_full.py) and the host LAPACK opt-out of the exact
-//    tail; neither is ported yet, so this kernel only ever builds the dense
-//    B of the dense branch.
+//  * Not here: the matrix-free path's on-the-fly B V tiles (csrc/b_matmat.cu)
+//    and the exact branch's float64 G (built in place in its N x N buffer).
+//
+// The same tile walk builds the dense scan's float64 whitened correlation
+// (correlation_f64, the kernel symmetric_upper<Whitened>): for unit vectors
+// u_i (N, 3) and s_i = sigma_b,i / sigma_o,i, all float64,
+//
+//     C[i,j] = (s_i s_j) exp(max(kappa (clip(u_i . u_j, -1, 1) - 1), -60))
+//
+// with kappa = (R / L)^2, so that kappa (u.u - 1) = -d^2 / (2 L^2) for the
+// chordal distance d.  This is C = D^-1 B D^-1 of the float64 scan
+// (oi_full_dense_scan_f64 in oisat_tpu_torch/ops/oi_full.py), in one pass
+// and one N x N buffer; the plain version is the same formula as torch
+// operations (covariance.correlation_plain).  It replaces the JAX scan's
+// pallas_call of B at float32 on that path: at a monthly sigma_b/sigma_o of
+// ~100 only a float64 C gives the reference's knee.  The dot product is
+// x x' + y y' + z z' with two FMAs in that order, and the scaling s_i s_j
+// is one product: both commute, so C is bitwise symmetric on the diagonal
+// tiles too, which compute both halves.  C agrees with the plain version
+// (a cuBLAS GEMM of K = 3, whose order is its own, and (G s_i) s_j) to a
+// few ulps.  What bounds it on the H100: the N^2 x 8 bytes it writes, 255
+// MB at N = 5,643, 76 us at 3.35 TB/s, against ~10 float64 operations
+// (exp counted once) for each of the N^2 / 2 computed elements: 4.7 us at
+// 34 TFLOP/s.  Shared memory: the 64 x 65 float64 mirror tile, 33 KB, and
+// the staged cells, 4 KB.
 
 #include <cuda_runtime.h>
 
@@ -82,37 +103,69 @@ __device__ __forceinline__ float clip01(float a) {
   return a < 0.f ? 0.f : (a > 1.f ? 1.f : a);
 }
 
-struct Cell {
-  float lat, lon, sig, cos;
+// B[i, j] of the float32 covariance, in the JAX kernel's order of operations
+struct Covariance {
+  using Value = float;
+  struct Cell {
+    float lat, lon, sig, cos;
+  };
+  const float* lat;
+  const float* lon;
+  const float* sigma;
+  float c_d2, two_l2;
+
+  __device__ __forceinline__ Cell stage(long long i, long long n) const {
+    const bool in = i < n;
+    const float la = in ? lat[i] : 0.f;
+    return Cell{la, in ? lon[i] : 0.f, in ? sigma[i] : 0.f, cosf(la)};
+  }
+
+  __device__ __forceinline__ float operator()(const Cell& a, const Cell& b) const {
+    const float sdlat = sinf(__fmul_rn(0.5f, __fsub_rn(a.lat, b.lat)));
+    const float sdlon = sinf(__fmul_rn(0.5f, __fsub_rn(a.lon, b.lon)));
+    // sdlat^2 + ((cos_i cos_j) sdlon) sdlon
+    const float cross = __fmul_rn(__fmul_rn(__fmul_rn(a.cos, b.cos), sdlon), sdlon);
+    const float hav = clip01(__fadd_rn(__fmul_rn(sdlat, sdlat), cross));
+    const float decay = expf(__fdiv_rn(-__fmul_rn(c_d2, hav), two_l2));
+    return __fmul_rn(__fmul_rn(a.sig, b.sig), decay);
+  }
 };
 
-// B[i, j] in the JAX kernel's order of operations
-__device__ __forceinline__ float element(const Cell& a, const Cell& b, float c_d2,
-                                         float two_l2) {
-  const float sdlat = sinf(__fmul_rn(0.5f, __fsub_rn(a.lat, b.lat)));
-  const float sdlon = sinf(__fmul_rn(0.5f, __fsub_rn(a.lon, b.lon)));
-  // sdlat^2 + ((cos_i cos_j) sdlon) sdlon
-  const float cross = __fmul_rn(__fmul_rn(__fmul_rn(a.cos, b.cos), sdlon), sdlon);
-  const float hav = clip01(__fadd_rn(__fmul_rn(sdlat, sdlat), cross));
-  const float decay = expf(__fdiv_rn(-__fmul_rn(c_d2, hav), two_l2));
-  return __fmul_rn(__fmul_rn(a.sig, b.sig), decay);
-}
+// C[i, j] of the float64 whitened correlation: the plain version's
+// operations after the dot product (clip, - 1, x kappa, the -60 floor,
+// exp), then x (s_i s_j), symmetric in i and j; each clip keeps NaN
+struct Whitened {
+  using Value = double;
+  struct Cell {
+    double x, y, z, s;
+  };
+  const double* u3;
+  const double* s;
+  double kappa;
 
-__device__ __forceinline__ Cell stage(const float* __restrict__ lat,
-                                      const float* __restrict__ lon,
-                                      const float* __restrict__ sigma, long long i,
-                                      long long n) {
-  const bool in = i < n;
-  const float la = in ? lat[i] : 0.f;
-  return Cell{la, in ? lon[i] : 0.f, in ? sigma[i] : 0.f, cosf(la)};
-}
+  __device__ __forceinline__ Cell stage(long long i, long long n) const {
+    if (i >= n) return Cell{0.0, 0.0, 0.0, 0.0};
+    return Cell{u3[3 * i], u3[3 * i + 1], u3[3 * i + 2], s[i]};
+  }
 
+  __device__ __forceinline__ double operator()(const Cell& a, const Cell& b) const {
+    double g = __fma_rn(a.z, b.z, __fma_rn(a.y, b.y, __dmul_rn(a.x, b.x)));
+    g = g < -1.0 ? -1.0 : (g > 1.0 ? 1.0 : g);
+    double e = __dmul_rn(__dsub_rn(g, 1.0), kappa);
+    e = e < -60.0 ? -60.0 : e;
+    return __dmul_rn(__dmul_rn(a.s, b.s), exp(e));
+  }
+};
+
+// One 64 x 64 tile on or above the diagonal of the symmetric (n, n) matrix
+// op(cell i, cell j), and its mirror below.
+template <class Op>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
-covariance_upper(const float* __restrict__ lat, const float* __restrict__ lon,
-                 const float* __restrict__ sigma, long long n, float c_d2,
-                 float two_l2, float* __restrict__ out) {
+symmetric_upper(const Op op, long long n, typename Op::Value* __restrict__ out) {
+  using Cell = typename Op::Cell;
+  using Value = typename Op::Value;
   __shared__ Cell rows[kTile], cols[kTile];
-  __shared__ float mirror[kTile][kTile + 1];
+  __shared__ Value mirror[kTile][kTile + 1];
 
   // block b -> (bi, bj), bi <= bj: b = bj (bj + 1) / 2 + bi
   const long long b = blockIdx.x;
@@ -128,9 +181,9 @@ covariance_upper(const float* __restrict__ lat, const float* __restrict__ lon,
   const int ty = threadIdx.y;
   const int t = ty * kThreadsX + tx;
   if (t < kTile) {
-    rows[t] = stage(lat, lon, sigma, row0 + t, n);
+    rows[t] = op.stage(row0 + t, n);
   } else if (t < 2 * kTile) {
-    cols[t - kTile] = stage(lat, lon, sigma, col0 + t - kTile, n);
+    cols[t - kTile] = op.stage(col0 + t - kTile, n);
   }
   __syncthreads();
 
@@ -144,8 +197,8 @@ covariance_upper(const float* __restrict__ lat, const float* __restrict__ lon,
   for (int r = ty; r < kTile; r += kThreadsY) {
     const Cell a = rows[r];
     const long long i = row0 + r;
-    const float v0 = element(a, c0, c_d2, two_l2);
-    const float v1 = element(a, c1, c_d2, two_l2);
+    const Value v0 = op(a, c0);
+    const Value v1 = op(a, c1);
     if (i < n) {
       if (j0 < n) out[i * n + j0] = v0;
       if (j1 < n) out[i * n + j1] = v1;
@@ -158,7 +211,7 @@ covariance_upper(const float* __restrict__ lat, const float* __restrict__ lon,
   if (diagonal) return;
   __syncthreads();
 
-  // the mirror tile: row col0 + r of B takes column r of the computed tile
+  // the mirror tile: row col0 + r takes column r of the computed tile
   const long long i0 = row0 + tx;
   const long long i1 = i0 + kThreadsX;
   for (int r = ty; r < kTile; r += kThreadsY) {
@@ -167,6 +220,19 @@ covariance_upper(const float* __restrict__ lat, const float* __restrict__ lon,
     if (i0 < n) out[j * n + i0] = mirror[tx][r];
     if (i1 < n) out[j * n + i1] = mirror[tx + kThreadsX][r];
   }
+}
+
+template <class Op>
+int launch(const Op& op, long long n, void* out, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const long long tiles = (n + kTile - 1) / kTile;
+  if (tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2));
+  const dim3 block(kThreadsX, kThreadsY);
+  symmetric_upper<Op><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      op, n, static_cast<typename Op::Value*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -179,17 +245,17 @@ extern "C" {
 int covariance_f32(const void* lat, const void* lon, const void* sigma,
                    long long n, float c_d2, float two_l2, void* out,
                    void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const long long tiles = (n + kTile - 1) / kTile;
-  if (tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2));
-  const dim3 block(kThreadsX, kThreadsY);
-  covariance_upper<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lat), static_cast<const float*>(lon),
-      static_cast<const float*>(sigma), n, c_d2, two_l2,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const Covariance op{static_cast<const float*>(lat), static_cast<const float*>(lon),
+                      static_cast<const float*>(sigma), c_d2, two_l2};
+  return launch(op, n, out, stream);
+}
+
+// u3: (n, 3) float64 unit vectors, row-major; s: (n,) float64; out: (n, n)
+// float64, row-major.  Device pointers and a cudaStream_t as above.
+int correlation_f64(const void* u3, const void* s, long long n, double kappa,
+                    void* out, void* stream) {
+  const Whitened op{static_cast<const double*>(u3), static_cast<const double*>(s), kappa};
+  return launch(op, n, out, stream);
 }
 
 // Largest n one launch takes (T(T+1)/2 blocks must fit the grid).

@@ -18,6 +18,18 @@ needs no asin.  Everything is float32, as in the JAX kernel.
   caller picks the engine.  There is no ``N % tile`` requirement and no
   padding.
 * :func:`build_covariance_reference` is the NumPy float64 golden.
+
+The float64 dense scan's ``C = D^-1 B D^-1`` comes from the same source:
+
+    C[i, j] = s_i s_j exp(max(kappa (clip(u_i . u_j, -1, 1) - 1), -60))
+
+for unit vectors ``u`` (N, 3), ``s = sigma_b / sigma_o`` and
+``kappa = (R / L)^2``.  :func:`whitened_correlation_kernel` launches it
+(float64, CUDA tensors only, launches counted),
+:func:`correlation_plain` is the same formula as torch operations (without
+``s``, the correlation G that the exact branch builds in place), and
+:func:`whitened_correlation` picks by the tensors' device as
+:func:`build_covariance` does.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ from oisat_tpu_torch._device import resolve_device
 from oisat_tpu_torch.ops.kernels._build import load_library
 
 __all__ = ["EARTH_RADIUS_KM", "build_covariance", "build_covariance_kernel",
-           "build_covariance_plain", "build_covariance_reference", "radians_f32"]
+           "build_covariance_plain", "build_covariance_reference", "correlation_plain",
+           "radians_f32", "whitened_correlation", "whitened_correlation_kernel"]
 
 EARTH_RADIUS_KM = 6371.0
 _SOURCE = "covariance"
@@ -86,6 +99,9 @@ def _library() -> ctypes.CDLL:
                                    ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                                    ctypes.c_void_p, ctypes.c_void_p]
     lib.covariance_f32.restype = ctypes.c_int
+    lib.correlation_f64.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+    lib.correlation_f64.restype = ctypes.c_int
     lib.covariance_max_n.argtypes = []
     lib.covariance_max_n.restype = ctypes.c_longlong
     lib.covariance_error_string.argtypes = [ctypes.c_int]
@@ -131,6 +147,63 @@ def build_covariance_kernel(lat: torch.Tensor, lon: torch.Tensor, sigma: torch.T
 
 
 build_covariance_kernel.launches = 0
+
+
+def correlation_plain(u3: torch.Tensor, kappa: float, s: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """The N x N correlation ``exp(kappa (u.u - 1))`` of the unit vectors
+    ``u3`` (N, 3), in their dtype and on their device: one new tensor, every
+    step after the product in place (the argument clipped at -60, as on the
+    host); with ``s`` (N,) scaled in place to ``diag(s) G diag(s)``."""
+    g = u3 @ u3.T
+    g.clamp_(-1.0, 1.0).sub_(1.0).mul_(kappa).clamp_(min=-60.0).exp_()
+    return g if s is None else g.mul_(s[:, None]).mul_(s[None, :])
+
+
+def whitened_correlation_kernel(u3: torch.Tensor, s: torch.Tensor, kappa: float
+                                ) -> torch.Tensor:
+    """(N, N) float64 ``diag(s) G diag(s)`` from the CUDA kernel, bitwise
+    symmetric.
+
+    ``u3``: contiguous (N, 3) float64 unit vectors and ``s``: contiguous
+    (N,) float64, on one CUDA device.  Raises on anything else; launches on
+    the current stream without synchronising."""
+    if u3.device.type != "cuda" or s.device != u3.device:
+        raise ValueError(f"the correlation kernel needs u3 and s on one CUDA device, got "
+                         f"{u3.device} and {s.device}")
+    if u3.dtype != torch.float64 or s.dtype != torch.float64:
+        raise TypeError(f"the correlation kernel takes float64, got {u3.dtype} and {s.dtype}")
+    n = s.numel()
+    if u3.shape != (n, 3) or s.dim() != 1 or not (u3.is_contiguous() and s.is_contiguous()):
+        raise ValueError(f"the correlation kernel needs contiguous (N, 3) and (N,) tensors, "
+                         f"got {tuple(u3.shape)} and {tuple(s.shape)}")
+    out = torch.empty((n, n), dtype=torch.float64, device=u3.device)
+    if n == 0:
+        return out  # nothing to launch
+    lib = _library()
+    if n > lib.covariance_max_n():
+        raise ValueError(f"the correlation kernel takes at most {lib.covariance_max_n()} "
+                         f"cells, got {n}")
+    with torch.cuda.device(u3.device):
+        stream = torch.cuda.current_stream(u3.device).cuda_stream
+        rc = lib.correlation_f64(u3.data_ptr(), s.data_ptr(), n, float(kappa), out.data_ptr(),
+                                 stream)
+    if rc != 0:
+        msg = lib.covariance_error_string(rc).decode()
+        raise RuntimeError(f"correlation kernel launch failed: CUDA error {rc} ({msg})")
+    whitened_correlation_kernel.launches += 1
+    return out
+
+
+whitened_correlation_kernel.launches = 0
+
+
+def whitened_correlation(u3: torch.Tensor, s: torch.Tensor, kappa: float) -> torch.Tensor:
+    """``diag(s) G diag(s)`` (N, N) in ``u3``'s dtype: the kernel for CUDA
+    tensors, the plain version for the CPU, with no fallback."""
+    if u3.device.type == "cpu":
+        return correlation_plain(u3, kappa, s)
+    return whitened_correlation_kernel(u3, s, kappa)
 
 
 def build_covariance(lat_deg, lon_deg, sigma, length_scale_km: float, *,

@@ -21,7 +21,13 @@ What replaces what:
   :func:`oi_full_dense_scan` (the 99-factor regularization scan: one
   ``eigh`` of ``D^-1 B D^-1``, two GEMMs, one ``(R, N) @ (N, N)`` product for
   the mean-AK curve, the Kneedle knee on the host from one 99-float pull)
-  are the JAX functions of the same names, in float32 like them.
+  are the JAX functions of the same names, in float32 like them.  With
+  ``regularization_on`` the dense branch runs :func:`oi_full_dense_scan_f64`
+  instead, the same scan in float64 from C = D^-1 B D^-1 up (on a card C
+  comes from ``csrc/covariance.cu``'s float64 kernel): at a monthly
+  sigma_b/sigma_o of ~100 the float32 curve's rounding is the size of its
+  differences near the knee, so only the float64 curve picks the float64
+  reference's factor.  The float32 scan stays as the JAX package's twin.
 * :func:`_exact_tail` is ``_exact_tail_prog``: when the conditioning
   estimate ``(max sigma_b sqrt(r) / min sigma_o)^2`` exceeds 1e4 (the
   production regime, monthly-average sigma_b/sigma_o ~ 150-300), the
@@ -75,7 +81,9 @@ import numpy as np
 import torch
 
 from oisat_tpu_torch._device import resolve_device, to_device, to_host
-from oisat_tpu_torch.ops.kernels.covariance import EARTH_RADIUS_KM, build_covariance
+from oisat_tpu_torch.ops.kernels.covariance import (EARTH_RADIUS_KM, build_covariance,
+                                                    whitened_correlation)
+from oisat_tpu_torch.ops.kernels.covariance import correlation_plain as _correlation
 from oisat_tpu_torch.ops.knee import kneedle_index_np
 from oisat_tpu_torch.ops.oi import regularization_grid
 from oisat_tpu_torch.ops import oi_full_matfree as matfree
@@ -91,8 +99,8 @@ from oisat_tpu_torch.ops.oi_full_matfree import (  # the twin's names, importabl
 from oisat_tpu_torch.utils.profiling import StageClock, count
 
 __all__ = ["OIFullResult", "oi_full", "oi_full_dense", "oi_full_dense_scan",
-           "oi_full_matfree", "mean_ak_curve_slq", "DENSE_MAX_CELLS",
-           "DENSE_SCAN_MAX_CELLS", "REFINE_MAX_CELLS", "NYSTROM_MIN_CELLS",
+           "oi_full_dense_scan_f64", "oi_full_matfree", "mean_ak_curve_slq",
+           "DENSE_MAX_CELLS", "DENSE_SCAN_MAX_CELLS", "REFINE_MAX_CELLS", "NYSTROM_MIN_CELLS",
            "DEVICE_EXACT_RESID_GATE"]
 
 # The JAX package's dense limits, kept so both packages take the same branch
@@ -211,6 +219,62 @@ def oi_full_dense_scan(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float
     return xb, ak, increment, err, reg_index, curve
 
 
+def oi_full_dense_scan_f64(xa, y, sigma_b, sigma_o, lat, lon, length_scale_km: float,
+                           regs, *, clock: StageClock | None = None):
+    """:func:`oi_full_dense_scan` in float64, the dense branch's scan.  One
+    N x N buffer takes ``C = D^-1 B D^-1 = diag(s) G diag(s)``,
+    ``s = sigma_b / sigma_o``, G the correlation of the cells' unit vectors
+    (:func:`~oisat_tpu_torch.ops.kernels.covariance.whitened_correlation`:
+    ``csrc/covariance.cu``'s float64 kernel on a card, its plain version on
+    the CPU); one ``eigh`` gives ``C = Q diag(lam) Q^T``.  Then, with
+    ``B = D Q diag(lam) Q^T D``, nothing needs B again:
+
+        meanAK(r) = (r / Nv) sum_i lam_i^2 w_i / (r lam_i + 1),
+                    w_i = sum_j Q_ji^2 sigma_o_j^2 / sigma_b_j^2   (the valid j)
+        increment = d - sigma_o Q (Q^T (d / sigma_o) / (r lam + 1))   (0 where sigma_b = 0)
+        diag(Sb)_j = sigma_o_j^2 sum_i Q_ji^2 r lam_i / (r lam_i + 1)
+
+    the reference's curve term by term (a sum of positive terms), and a
+    posterior diagonal free of the float32 scan's cancellation
+    ``r diag(B) - r^2 s``.  Inputs: (N,) tensors on one device (degrees for
+    ``lat``/``lon``), taken in float64; ``regs`` the float64 grid (R,).
+    Returns (xb, ak, increment, err, reg_index, curve) as
+    :func:`oi_full_dense_scan` does, in float64.  ``clock`` marks its stages
+    "covariance", "eigh", "scan_gemms", "knee" and "update"."""
+    clock = clock or StageClock(None, "cpu")
+    f64 = torch.float64
+    xa, y, sb, so, lat, lon = (t.to(f64) for t in (xa, y, sigma_b, sigma_o, lat, lon))
+    la, lo = torch.deg2rad(lat), torch.deg2rad(lon)
+    cl = torch.cos(la)
+    u3 = torch.stack([cl * torch.cos(lo), cl * torch.sin(lo), torch.sin(la)], dim=1)
+    c = whitened_correlation(u3, sb / so, (EARTH_RADIUS_KM / float(length_scale_km)) ** 2)
+    clock.mark("covariance")
+    lam, q = torch.linalg.eigh(c)
+    del c
+    clock.mark("eigh")
+    bd = sb * sb
+    valid = bd > 0  # sigma_b = 0 cells stay out of the curve
+    q2 = q.square()
+    w = q2.T @ torch.where(valid, so * so / torch.where(valid, bd, 1.0), 0.0)
+    regs_np = np.asarray(regs, np.float64)
+    regs_t = torch.as_tensor(regs_np, device=xa.device)
+    coef = 1.0 / (regs_t[:, None] * lam[None, :] + 1.0)  # (R, N)
+    curve = regs_t * (coef @ (lam * lam * w)) / torch.clamp(valid.sum(), min=1)
+    clock.mark("scan_gemms")
+    reg_index = kneedle_index_np(regs_np, to_host(curve), fallback=0)
+    clock.mark("knee")
+    r = float(regs_np[reg_index])
+    d = y - xa
+    # a sigma_b = 0 cell's row of the gain is 0: its increment is exactly 0
+    increment = torch.where(valid, d - so * (q @ (coef[reg_index] * (q.T @ (d / so)))), 0.0)
+    sb_diag = torch.minimum(torch.clamp(so * so * (q2 @ (r * lam * coef[reg_index])), min=0.0),
+                            r * bd)
+    ak = torch.where(valid, 1.0 - sb_diag / torch.where(valid, r * bd, 1.0),
+                     torch.full_like(bd, math.nan))
+    clock.mark("update")
+    return xa + increment, ak, increment, torch.sqrt(sb_diag), reg_index, curve
+
+
 # ---------------------------------------------------------------------------
 # the exact float64 tail
 # ---------------------------------------------------------------------------
@@ -227,15 +291,6 @@ def _kernel_block_f64(u3_64, s, e, kappa: float, out=None, full=None):
     np.maximum(g, -60.0, out=g)
     np.exp(g, out=g)
     return g
-
-
-def _correlation(u3, kappa: float) -> torch.Tensor:
-    """The N x N correlation ``exp(kappa (u.u - 1))`` of the unit vectors
-    ``u3`` (N, 3), in their dtype and on their device: one new tensor, every
-    step after the product in place (the argument clipped at -60, as on the
-    host)."""
-    g = u3 @ u3.T
-    return g.clamp_(-1.0, 1.0).sub_(1.0).mul_(kappa).clamp_(min=-60.0).exp_()
 
 
 def _cholesky_(a, block: int = EXACT_FACTOR_BLOCK) -> torch.Tensor:
@@ -566,8 +621,9 @@ def oi_full(xa2d, y2d, sigma_b2d, sigma_o2d, lat2d, lon2d, length_scale_km: floa
     """Grid-shaped full-covariance OI on ``device`` (the card unless the
     caller asks for the CPU): compaction, normalisation, the solve, and
     scatter-back to float64 numpy grids (NaN off the valid cells).  The
-    dense branch's B and the matrix-free branch's B.V sweeps run on the
-    hand-written kernels on the card and on their plain versions on the CPU.
+    dense solve's B, the dense scan's float64 C and the matrix-free
+    branch's B.V sweeps run on the hand-written kernels on the card and on
+    their plain versions on the CPU.
 
     Up to ``DENSE_SCAN_MAX_CELLS`` (``regularization_on``: the 99-factor
     scan) or ``DENSE_MAX_CELLS`` (without) valid cells: the dense solve and
@@ -627,23 +683,26 @@ def _oi_full_dense_branch(cp: Compacted, length_scale_km: float, regularization_
                           dev, clock: StageClock):
     """The dense solve of the compacted cells and, at tight conditioning,
     the exact float64 tail: (xb, ak, increment, err, info) as compacted
-    numpy vectors in the normalised units."""
-
-    def take(a):
-        return torch.as_tensor(a.astype(np.float32), device=dev)
-
-    args = (take(cp.xa), take(cp.y), take(cp.sb), take(cp.so), take(cp.lat),
-            take(cp.lon), length_scale_km)
-    clock.mark("compact")
+    numpy vectors in the normalised units.  With ``regularization_on`` the
+    float64 scan (:func:`oi_full_dense_scan_f64`, its inputs in one copy),
+    without it the float32 dense solve.  Counts
+    ``oi_full.dense_cells`` (the cells) and ``oi_full.dense_tails`` (1 where
+    the tail ran)."""
+    count("oi_full.dense_cells", cp.idx.size)
+    grid = regularization_grid()
     if regularization_on:
-        grid = regularization_grid()
-        xb_v, ak_v, inc_v, err_v, reg_index, _ = oi_full_dense_scan(
-            *args, grid.astype(np.float32), clock=clock)
-        r_chosen = float(grid[reg_index])
+        args = to_device(np.stack([cp.xa, cp.y, cp.sb, cp.so, cp.lat, cp.lon]), dev,
+                         torch.float64)
+        clock.mark("compact")
+        *fields, reg_index, _ = oi_full_dense_scan_f64(*args, length_scale_km, grid,
+                                                       clock=clock)
     else:
-        xb_v, ak_v, inc_v, err_v = oi_full_dense(*args, clock=clock)
-        r_chosen = 1.0
-    xb_v, ak_v, inc_v, err_v = (_host64(v) for v in (xb_v, ak_v, inc_v, err_v))
+        args = [torch.as_tensor(a.astype(np.float32), device=dev)
+                for a in (cp.xa, cp.y, cp.sb, cp.so, cp.lat, cp.lon)]
+        clock.mark("compact")
+        fields, reg_index = oi_full_dense(*args, length_scale_km, clock=clock), None
+    r_chosen = 1.0 if reg_index is None else float(grid[reg_index])
+    xb_v, ak_v, inc_v, err_v = to_host(torch.stack(fields).to(torch.float64))
     clock.mark("pull")
 
     # the float32 representation wall: at tight conditioning the dense
@@ -653,6 +712,7 @@ def _oi_full_dense_branch(cp: Compacted, length_scale_km: float, regularization_
     sov = cp.so
     info = None
     if (np.max(sbv) / np.min(sov)) ** 2 > TIGHT_CONDITIONING:
+        count("oi_full.dense_tails")
         d64 = cp.y - cp.xa
         x64, pack, rr, how = _exact_tail_solve(sbv, sov, d64, cp.lat, cp.lon,
                                                length_scale_km, dev, clock=clock)

@@ -38,10 +38,15 @@ synchronises aside), ``regrid.plan_builds_device`` /
 card's kernel or on the host), ``regrid.batches_device`` (each granule whose
 value batch was built on its device from the raw fields),
 ``assemble.slices_device`` (each matched CTM
-slice whose operator fields were derived on the device), and
+slice whose operator fields were derived on the device),
 ``oi_full.exact_cells`` /
 ``oi_full.exact_bytes`` (the cells the full OI's exact float64 branch
-factors, and its N x N buffer's bytes).
+factors, and its N x N buffer's bytes), and ``oi_full.dense_cells`` /
+``oi_full.dense_tails`` (the valid cells of each full OI on the dense
+branch, whose stages are ``oi_full.covariance``, ``.eigh``,
+``.scan_gemms``, ``.knee``, ``.update``, ``.pull``, ``.tail`` and
+``.tail_resid``; and 1 for each such call whose conditioning-gated float64
+tail ran).
 
 Usage::
 

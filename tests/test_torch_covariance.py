@@ -10,6 +10,14 @@ the golden -- the JAX test's own bounds (tests/test_oi_full.py:19), which
 cover float32 sin/exp.  On the card the kernel and the plain version round
 operation by operation alike, so they are bitwise equal; B is bitwise
 symmetric, which lets the kernel compute one triangle and mirror it.
+
+The float64 whitened correlation C = diag(s) G diag(s) of the dense scan:
+its plain version against the float64 golden B / (sigma_o_i sigma_o_j) to
+rtol 1e-11 (the chordal distance from the unit vectors' dot product, whose
+rounding kappa ~ 451 multiplies; pairs past the exponent's -60 floor take
+exp(-60) s_i s_j), and on the card the kernel against the
+plain version to rtol 1e-12 (the same formula; only the K = 3 dot
+product's order differs from cuBLAS's), bitwise symmetric.
 """
 
 import numpy as np
@@ -132,6 +140,57 @@ def test_cpu_tensors_take_the_plain_version():
         cov.build_covariance_kernel(lat_r, lon_r, torch.ones_like(lat_r), 300.0)
 
 
+def _unit_vectors(lat, lon, device="cpu"):
+    la, lo = (torch.deg2rad(torch.as_tensor(v, dtype=torch.float64, device=device))
+              for v in (lat, lon))
+    return torch.stack([torch.cos(la) * torch.cos(lo), torch.cos(la) * torch.sin(lo),
+                        torch.sin(la)], dim=1)
+
+
+def _kappa(length_scale_km):
+    return (cov.EARTH_RADIUS_KM / length_scale_km) ** 2
+
+
+def _assert_golden(got, lat, lon, sb, so, length_scale_km):
+    """C against the float64 golden B / (so_i so_j), the pairs whose
+    exponent is below -60 against exp(-60) s_i s_j."""
+    ss = np.outer(sb / so, sb / so)
+    want = cov.build_covariance_reference(lat, lon, sb, length_scale_km) / np.outer(so, so)
+    near = want > np.exp(-60.0) * ss * (1.0 + 1e-9)
+    np.testing.assert_allclose(got[near], want[near], rtol=1e-11, atol=0.0)
+    np.testing.assert_allclose(got[~near], np.exp(-60.0) * ss[~near], rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.parametrize("n, length_scale_km", [(1, 300.0), (200, 300.0), (700, 150.0)])
+def test_whitened_correlation_plain_matches_golden(n, length_scale_km):
+    lat, lon, sb = _coords(n, seed=20 + n)
+    so = sb / np.random.default_rng(n).uniform(20.0, 200.0, n)
+    got = cov.correlation_plain(_unit_vectors(lat, lon), _kappa(length_scale_km),
+                                torch.as_tensor(sb / so)).numpy()
+    _assert_golden(got, lat, lon, sb, so, length_scale_km)
+
+
+def test_whitened_correlation_takes_the_plain_version_on_the_cpu():
+    lat, lon, sb = _coords(50, seed=21)
+    u3, s = _unit_vectors(lat, lon), torch.as_tensor(sb)
+    before = cov.whitened_correlation_kernel.launches
+    c = cov.whitened_correlation(u3, s, _kappa(300.0))
+    assert c.dtype == torch.float64
+    assert torch.equal(c, cov.correlation_plain(u3, _kappa(300.0), s))
+    assert cov.whitened_correlation_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        cov.whitened_correlation_kernel(u3, s, _kappa(300.0))
+
+
+def test_correlation_without_s_is_the_correlation():
+    lat, lon, _ = _coords(64, seed=22)
+    u3 = _unit_vectors(lat, lon)
+    g = cov.correlation_plain(u3, _kappa(300.0))
+    ones = cov.correlation_plain(u3, _kappa(300.0), torch.ones(64, dtype=torch.float64))
+    assert torch.equal(g, ones)
+    np.testing.assert_allclose(torch.diagonal(g).numpy(), 1.0, rtol=1e-12)  # kappa x 2 ulp
+
+
 # -- the CUDA kernel against the plain version, on the card ------------------
 
 @pytest.fixture
@@ -198,3 +257,43 @@ def test_kernel_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         cov.build_covariance_kernel(lat, lat, lat.cpu(), 300.0)
     assert cov.build_covariance_kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 63, 64, 65, 1000, 5643, 6144])
+def test_whitened_correlation_kernel_matches_plain(cuda, n):
+    """Every n, ragged diagonal tiles included: the float64 kernel within
+    rtol 1e-12 of the plain version, bitwise symmetric and repeatable, and
+    within the golden's rtol 1e-11."""
+    lat, lon, sb = _coords(n, seed=30 + n)
+    so = sb / np.random.default_rng(n).uniform(20.0, 200.0, n)
+    u3 = _unit_vectors(lat, lon, cuda)
+    s = torch.as_tensor(sb / so, device=cuda)
+    before = cov.whitened_correlation_kernel.launches
+    k = cov.whitened_correlation(u3, s, _kappa(300.0))
+    k2 = cov.whitened_correlation_kernel(u3, s, _kappa(300.0))
+    assert cov.whitened_correlation_kernel.launches == before + 2
+    p = cov.correlation_plain(u3, _kappa(300.0), s)
+    torch.cuda.synchronize()
+    k, k2, p = k.cpu().numpy(), k2.cpu().numpy(), p.cpu().numpy()
+    assert np.array_equal(k, k2)
+    assert np.array_equal(k, k.T)
+    np.testing.assert_allclose(k, p, rtol=1e-12, atol=0.0)
+    _assert_golden(k, lat, lon, sb, so, 300.0)
+
+
+@pytest.mark.gpu
+def test_whitened_correlation_kernel_rejects_bad_input(cuda):
+    u3 = torch.rand(64, 3, dtype=torch.float64, device=cuda)
+    s = torch.rand(64, dtype=torch.float64, device=cuda)
+    before = cov.whitened_correlation_kernel.launches
+    assert cov.whitened_correlation_kernel(u3[:0], s[:0], 1.0).shape == (0, 0)
+    with pytest.raises(TypeError):
+        cov.whitened_correlation_kernel(u3.float(), s.float(), 1.0)
+    with pytest.raises(ValueError):
+        cov.whitened_correlation_kernel(u3.T.contiguous(), s, 1.0)
+    with pytest.raises(ValueError):
+        cov.whitened_correlation_kernel(u3[::2], s[::2], 1.0)
+    with pytest.raises(ValueError):
+        cov.whitened_correlation_kernel(u3, s.cpu(), 1.0)
+    assert cov.whitened_correlation_kernel.launches == before
